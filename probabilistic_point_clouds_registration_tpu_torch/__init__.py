@@ -1,0 +1,30 @@
+"""Probabilistic point-cloud registration in PyTorch, for NVIDIA GPUs.
+
+A port of the JAX package ``probabilistic_point_clouds_registration_tpu``
+(which stays the reference) to PyTorch, with its TPU kernels rewritten by
+hand for Hopper (``csrc/``, built with nvcc at first use by ``kernels.py``).
+It imports neither JAX nor the JAX package. Each module mirrors the JAX
+module of the same path.
+
+Ported so far: pair registration (``ProbabilisticRegistration``,
+``register_pair``) with Student-t or Gaussian EM weights, the moments-form
+LM solve, and the fused grouped search (CUDA window-select kernel) and brute
+search engines.
+"""
+
+from .core.params import RegistrationParams
+from .core.se3 import SE3
+from .models.em_lm import LMConfig, em_lm_solve
+from .models.registration import ProbabilisticRegistration, register_pair
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "RegistrationParams",
+    "SE3",
+    "LMConfig",
+    "em_lm_solve",
+    "ProbabilisticRegistration",
+    "register_pair",
+    "__version__",
+]

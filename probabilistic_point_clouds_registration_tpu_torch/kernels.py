@@ -1,0 +1,93 @@
+"""Build and load the package's CUDA kernels.
+
+Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point that
+launches on the stream it is given and returns the ``cudaError_t`` of the
+launch. At first use the file is compiled with ``nvcc`` for Hopper
+(``sm_90a``) into ``build/kernels/`` beside the package, under a name keyed
+by a hash of the source and the flags, and loaded with ctypes. Nothing is
+compiled when this module is imported.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> (C entry point, argtypes). Pointers and the stream are c_void_p so
+# ctypes passes them as 64-bit values.
+_ENTRY_POINTS = {
+    "select_windows": (
+        "select_windows_launch",
+        [_P] * 10 + [_I] * 4 + [ctypes.c_float, _P],
+    ),
+}
+
+_loaded: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    nvcc = cuda_home / "bin" / "nvcc"
+    if nvcc.exists():
+        return str(nvcc)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return found
+
+
+def library_path(name: str) -> Path:
+    """Where the build of ``csrc/<name>.cu`` lives (hash of source + flags)."""
+    src = _CSRC / f"{name}.cu"
+    digest = hashlib.sha256(
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless its build exists; returns the .so.
+
+    The compiler's output (``-Xptxas -v``: registers, shared memory, spills)
+    is kept beside the library as ``.log``.
+    """
+    so = library_path(name)
+    if so.exists():
+        return so
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+        capture_output=True,
+        text=True,
+    )
+    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {name}.cu:\n{proc.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def load(name: str):
+    """The C entry point of kernel ``name``, built at first use."""
+    fn = _loaded.get(name)
+    if fn is None:
+        symbol, argtypes = _ENTRY_POINTS[name]
+        fn = getattr(ctypes.CDLL(str(build(name))), symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+    return fn

@@ -1,0 +1,177 @@
+"""Parity of the PyTorch port's small modules with the JAX package:
+core types, SE(3) math, parameters, the E-step weights, and the rule that
+the port imports no JAX.
+
+Tolerances: the SE(3) tensor functions are compared in float64 at 1e-12
+(same formulas, summation order may differ by an ulp); the numpy host
+helpers and the integer size helpers must be equal; the weights are held to
+the reference's golden vectors at 1e-6 (test/ProbabilisticWeightsTest.cc)
+and to the JAX function at 1e-12 in float64.
+"""
+import math
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from probabilistic_point_clouds_registration_tpu.core import params as j_params
+from probabilistic_point_clouds_registration_tpu.core import se3 as j_se3
+from probabilistic_point_clouds_registration_tpu.core import types as j_types
+from probabilistic_point_clouds_registration_tpu.ops.weights import (
+    update_weights as j_update_weights,
+)
+from probabilistic_point_clouds_registration_tpu_torch.core import params as t_params
+from probabilistic_point_clouds_registration_tpu_torch.core import se3 as t_se3
+from probabilistic_point_clouds_registration_tpu_torch.core import types as t_types
+from probabilistic_point_clouds_registration_tpu_torch.ops.weights import (
+    update_weights as t_update_weights,
+)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _quats_and_points(seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=4) * rng.uniform(0.5, 3.0)  # deliberately non-unit
+    b = rng.normal(size=4)
+    pts = rng.normal(size=(64, 3)) * 10.0
+    return q, b, pts
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_se3_tensor_functions_match_jax(seed):
+    q, b, pts = _quats_and_points(seed)
+    tq, tb, tp = (torch.as_tensor(a, dtype=torch.float64) for a in (q, b, pts))
+    jq, jb, jp = (jnp.asarray(a, dtype=jnp.float64) for a in (q, b, pts))
+    qn = q / np.linalg.norm(q)
+    cases = [
+        (t_se3.quat_normalize(tq), j_se3.quat_normalize(jq)),
+        (t_se3.unit_quat_rotate(torch.as_tensor(qn), tp),
+         j_se3.unit_quat_rotate(jnp.asarray(qn), jp)),
+        (t_se3.unit_quat_rotate(torch.as_tensor(qn), tp[0]),
+         j_se3.unit_quat_rotate(jnp.asarray(qn), jp[0])),
+        (t_se3.quat_rotate(tq, tp), j_se3.quat_rotate(jq, jp)),
+        (t_se3.quat_rotate_points(tq, tp), j_se3.quat_rotate_points(jq, jp)),
+        (t_se3.quat_multiply(tq, tb), j_se3.quat_multiply(jq, jb)),
+    ]
+    for got, want in cases:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_se3_host_helpers_equal_jax(seed):
+    q, _, _ = _quats_and_points(seed)
+    q = q / np.linalg.norm(q)
+    t = np.random.default_rng(seed).normal(size=3)
+    m = j_se3.np_quat_to_matrix(q)
+    np.testing.assert_array_equal(t_se3.np_quat_to_matrix(q), m)
+    np.testing.assert_array_equal(t_se3.np_matrix_to_quat(m), j_se3.np_matrix_to_quat(m))
+    np.testing.assert_array_equal(t_se3.np_se3_matrix(q, t), j_se3.np_se3_matrix(q, t))
+    np.testing.assert_array_equal(t_se3.matrix_euler_xyz(m), j_se3.matrix_euler_xyz(m))
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_se3_identity():
+    tf = t_se3.SE3.identity(torch.float64)
+    np.testing.assert_array_equal(tf.q.numpy(), [1.0, 0.0, 0.0, 0.0])
+    np.testing.assert_array_equal(tf.t.numpy(), [0.0, 0.0, 0.0])
+
+
+@pytest.mark.parametrize("n", [0, 1, 7, 63, 64, 65, 1000, 35_000, 131_072, 458_751])
+def test_size_helpers_equal_jax(n):
+    assert t_types.round_up(n, 128) == j_types.round_up(n, 128)
+    assert t_types.pow2(n) == j_types.pow2(n)
+    assert t_types.bucket_rows(n) == j_types.bucket_rows(n)
+    assert t_types.bucket_rows(n, 128) == j_types.bucket_rows(n, 128)
+    assert t_types.bucket_rows(n, step_bits=3) == j_types.bucket_rows(n, step_bits=3)
+
+
+def test_pad_cloud_and_valid_mask_equal_jax():
+    pts = np.random.default_rng(0).normal(size=(100, 3))
+    for mult, pad_value in ((128, 0.0), (100, np.inf), (64, np.inf)):
+        got, n = t_types.pad_cloud(pts, mult, pad_value)
+        want, nj = j_types.pad_cloud(pts, mult, pad_value)
+        assert n == nj
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        t_types.valid_mask(128, 100).numpy(), np.asarray(j_types.valid_mask(128, 100))
+    )
+
+
+def test_from_reference_params_carries_every_field():
+    ref = j_params.RegistrationParams(
+        max_neighbours=7, dof=math.inf, radius=0.3, n_iter=9, cost_drop_thresh=-1.0,
+        initial_rotation=(0.0, 1.0, 0.0, 0.0), pad_multiple=1024,
+        max_inner_iterations=50, search_impl="fused", outer_chunk=15,
+    )
+    got = t_params.from_reference_params(ref)
+    assert isinstance(got, t_params.RegistrationParams)
+    import dataclasses
+
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    assert got.is_gaussian
+
+
+def _weights_fixture():
+    # Row 0 has 3 associations, row 1 has 4 (ProbabilisticWeightsTest.cc).
+    sq = np.array([[1.0, 1.0, 1.0, 0.0], [1.0, 4.0, 9.0, 16.0]])
+    mask = np.array([[True, True, True, False], [True, True, True, True]])
+    return torch.as_tensor(sq), torch.as_tensor(mask)
+
+
+@pytest.mark.parametrize(
+    "dof,row1",
+    [
+        (5.0, [0.7151351, 0.1412613, 0.0241258, 0.0047656]),
+        (math.inf, [0.805153702921689, 0.179654074677018, 0.0147469044726408,
+                    0.000445317928652638]),
+    ],
+    ids=["t5", "gaussian"],
+)
+def test_weights_golden_vectors(dof, row1):
+    sq, mask = _weights_fixture()
+    w = t_update_weights(sq, mask, dof=dof, dimension=1).numpy()
+    expected = np.array([[1 / 3, 1 / 3, 1 / 3, 0.0], row1])
+    np.testing.assert_allclose(w, expected, atol=1e-6)
+
+
+@pytest.mark.parametrize("dof", [5.0, 1.5, math.inf], ids=["t5", "t1.5", "gaussian"])
+def test_weights_match_jax(dof):
+    rng = np.random.default_rng(0)
+    sq = rng.random((64, 20)) * 10
+    mask = rng.random((64, 20)) > 0.3
+    mask[3] = False  # an empty row
+    got = t_update_weights(torch.as_tensor(sq), torch.as_tensor(mask), dof=dof, dimension=3)
+    want = j_update_weights(jnp.asarray(sq), jnp.asarray(mask), dof=dof, dimension=3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=1e-15)
+    assert np.all(got.numpy()[3] == 0.0)
+
+
+def test_port_imports_without_jax():
+    """The port must import with JAX (and the JAX package) unavailable."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'probabilistic_point_clouds_registration_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import probabilistic_point_clouds_registration_tpu_torch as p\n"
+        "from probabilistic_point_clouds_registration_tpu_torch import kernels\n"
+        "from probabilistic_point_clouds_registration_tpu_torch.ops import "
+        "fused_grid, fused_pool, grid, neighbors, weights\n"
+        "from probabilistic_point_clouds_registration_tpu_torch.io import synthetic\n"
+        "from probabilistic_point_clouds_registration_tpu_torch.utils import eval, ostream\n"
+        "print(sorted(p.__all__))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "ProbabilisticRegistration" in proc.stdout
