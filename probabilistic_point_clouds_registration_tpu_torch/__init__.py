@@ -8,8 +8,9 @@ module of the same path.
 
 Ported so far: pair registration (``ProbabilisticRegistration``,
 ``register_pair``) with Student-t or Gaussian EM weights, the moments-form
-LM solve, and the fused grouped search (CUDA window-select kernel) and brute
-search engines.
+LM solve, and three search engines: the pooled engine (``auto`` on a CUDA
+device), the dense fused grouped engine (both through the CUDA select
+kernels) and brute force.
 """
 
 from .core.params import RegistrationParams

@@ -61,11 +61,13 @@ class RegistrationParams:
     dtype: str = "float32"
     # Pad source/target point counts to multiples of this for static shapes.
     pad_multiple: int = 256
-    # Neighbor-search engine: "auto" (the fused grouped engine when the
-    # target grid is kept, has no hot-cell overflow and prepacks; else
-    # brute force) | "brute" (always the streaming tiled engine) | "fused"
-    # (force the grouped engine). The JAX package's "grid", "pool" and
-    # "pallas" engines are not ported yet.
+    # Neighbor-search engine: "auto" (on a CUDA device the capacity-free
+    # pooled engine when the target grid is kept and the pool plan accepts
+    # it; then the fused grouped engine when the grid has no hot-cell
+    # overflow and prepacks; else brute force; on the CPU the pooled step is
+    # skipped) | "pool" (force the pooled engine) | "brute" (always the
+    # streaming tiled engine) | "fused" (force the grouped engine). The JAX
+    # package's "grid" and "pallas" engines are not ported yet.
     search_impl: str = "auto"
     # Outer iterations fused into one device program in the JAX package;
     # accepted and ignored here (one outer iteration per host step).

@@ -33,6 +33,10 @@ _ENTRY_POINTS = {
         "select_windows_launch",
         [_P] * 10 + [_I] * 4 + [ctypes.c_float, _P],
     ),
+    "select_bitonic": (
+        "select_bitonic_launch",
+        [_P] * 10 + [_I] * 3 + [ctypes.c_float, _P],
+    ),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

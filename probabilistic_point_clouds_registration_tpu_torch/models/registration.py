@@ -17,13 +17,19 @@ rule and appends report rows. This is the JAX package's one-iteration host
 loop; its multi-iteration device scans are not ported (``outer_chunk`` is
 ignored), and by contract they give the same host-visible result.
 
-Search engines: "fused" (ops/fused_grid.py, through the CUDA window-select
-kernel on a GPU) and "brute" (ops/neighbors.py). ``auto`` takes the fused
-engine when the target grid is kept by the density check, has no hot-cell
-overflow set, and prepacks; otherwise brute force. When the fused engine's
-group budget overflows mid-pair, the rest of the pair runs on the brute
-engine: the loop says so through the output stream and counts it in
-``engine_fallbacks``.
+Search engines: "pool" (ops/fused_pool.py, the capacity-free pooled engine,
+through the CUDA select kernels on a GPU), "fused" (ops/fused_grid.py, the
+dense prepack) and "brute" (ops/neighbors.py). ``auto`` on a CUDA device
+takes the pooled engine when the target grid is kept by the density check
+and the pool plan accepts the scan, as the JAX package's ``auto`` does on
+its accelerator; then the fused engine when the grid has no hot-cell
+overflow set and prepacks; otherwise brute force. ``auto`` with
+``device="cpu"`` skips the pooled engine. When the pooled engine's budget
+overflows mid-pair, the iteration is redone at twice the row budget, twice;
+past that, and when the fused engine's group budget overflows, the rest of
+the pair runs on the brute engine (the JAX package falls back to its XLA
+grid engine, not ported yet): the loop says so through the output stream and
+counts it in ``engine_fallbacks``.
 
 Fidelity notes:
   * The inner solve is seeded with params.initial_rotation/translation every
@@ -46,12 +52,14 @@ from ..core.params import RegistrationParams
 from ..core.se3 import (
     matrix_euler_xyz,
     np_matrix_to_quat,
+    np_quat_to_matrix,
     np_se3_matrix,
     quat_rotate_points,
 )
-from ..core.types import pad_cloud
+from ..core.types import bucket_rows, pad_cloud, round_up
 from ..ops import fused_grid as _fg
-from ..ops.grid import build_grid_host
+from ..ops import fused_pool as _fp
+from ..ops.grid import add_buckets_host, build_grid_host
 from ..ops.neighbors import radius_search
 from ..utils.eval import calculate_mse
 from ..utils.ostream import OutputStream
@@ -62,7 +70,7 @@ REPORT_HEADER = (
     "roll, pitch, yaw, mse_prev_iter, mse_gtruth"
 )
 
-_ENGINES = ("auto", "fused", "brute")
+_ENGINES = ("auto", "pool", "fused", "brute")
 
 
 @dataclass
@@ -98,23 +106,45 @@ class ProbabilisticRegistration:
       params: RegistrationParams.
       ground_truth_cloud: optional (n, 3) aligned ground truth for the source;
         enables the MSE-vs-ground-truth column (cc:50-61).
-      prepared_target: the result of :meth:`prepare_target`, if made earlier.
+      prepared_target: the result of :meth:`prepare_target`, if made earlier
+        (for any device: a pool plan made for another device's narrow-class
+        cutoff is made again, and the bucket tensors a pooled grid skipped
+        are added when another engine takes the grid).
       device: where the search and solve run. "cuda" by default; CPU use
         must be asked for with "cpu". Nothing falls back to the CPU.
     """
 
     @staticmethod
-    def prepare_target(target_cloud: np.ndarray, params: RegistrationParams) -> dict:
-        """Host-side target preprocessing: pad + grid build (numpy only)."""
+    def prepare_target(target_cloud: np.ndarray, params: RegistrationParams,
+                       device: str | torch.device = "cuda") -> dict:
+        """Host-side target preprocessing for a run on ``device``: pad, grid
+        build and, when the pooled engine is the expected one, its host plan
+        (numpy only).
+
+        The pooled engine reads only the grid's cell-sorted view, so its
+        grid skips the bucket tensors; they are added the moment the plan
+        declines. ``pool_plan`` is False when the plan was attempted and
+        declined, None when it was not attempted; ``pool_cutoff`` is the
+        narrow-class cutoff it was made for.
+        """
         target = np.asarray(target_cloud, dtype=np.float64)
         tg, n_tgt = pad_cloud(target, params.pad_multiple, pad_value=0.0)
+        try_pool = _pool_expected(params, device)
         grid = None
-        if params.search_impl in ("auto", "fused"):
+        pool_plan = None
+        if params.search_impl in ("auto", "fused", "pool"):
             grid = build_grid_host(
                 tg, params.radius, num_valid=n_tgt,
-                max_overflow=params.grid_max_overflow,
+                max_overflow=params.grid_max_overflow, buckets=not try_pool,
             )
-        return {"target_cloud": target, "tg": tg, "n_tgt": n_tgt, "grid": grid}
+        # The ctor drops the grid on "auto" when the candidate set is too
+        # close to M; no plan is made for a grid it will not use.
+        if grid is not None and try_pool and not _too_dense(grid, n_tgt, params):
+            pool_plan = _fp.plan_pool_host(grid, tg, device=device) or False
+            if pool_plan is False:
+                add_buckets_host(grid, tg)  # for the engines after the pool
+        return {"target_cloud": target, "tg": tg, "n_tgt": n_tgt, "grid": grid,
+                "pool_plan": pool_plan, "pool_cutoff": _fp._select_max_w(device)}
 
     def __init__(
         self,
@@ -141,7 +171,7 @@ class ProbabilisticRegistration:
         self.source_cloud = np.array(source_cloud, dtype=np.float64)
         self.filtered_source = self.source_cloud.copy()
         if prepared_target is None:
-            prepared_target = self.prepare_target(target_cloud, params)
+            prepared_target = self.prepare_target(target_cloud, params, self.device)
         self.target_cloud = prepared_target["target_cloud"]
         self.ground_truth = ground_truth_cloud is not None
         self.mse_ground_truth = 0.0
@@ -161,13 +191,28 @@ class ProbabilisticRegistration:
         # Engine choice. The density check: a candidate set too close to M
         # is cheaper brute force (registration.py:865-873 of the JAX package).
         grid = prepared_target["grid"]
-        if (
-            grid is not None
-            and params.search_impl == "auto"
-            and 27 * grid["capacity"] * 8 > self._n_tgt
-        ):
+        if grid is not None and _too_dense(grid, self._n_tgt, params):
             grid = None
         self._prepack = None
+        self._pool = None
+        self._pool_budget_base = 0
+        self._pool_class_cum = None
+        # Pooled row-budget escalation rung (x2 per overflow, twice).
+        self._pool_budget_boost = 0
+        plan = prepared_target.get("pool_plan")
+        if prepared_target.get("pool_cutoff") != _fp._select_max_w(dev):
+            plan = None  # planned for another device's cutoff
+        if grid is not None and _pool_expected(params, dev):
+            if plan is None:
+                plan = _fp.plan_pool_host(grid, tg, device=dev) or False
+            if plan:
+                self._init_pool(grid, tg, plan, np_dtype)
+        if self._pool is not None or params.search_impl == "pool":
+            grid = None  # no dense prepack beside the pool
+        if grid is not None:
+            # A grid prepared for the pool has no bucket tensors or overflow
+            # split yet (idempotent).
+            add_buckets_host(grid, tg)
         if grid is not None and "overflow_pts" in grid:
             # The hot-cell overflow merge is not ported: only brute force
             # finds those neighbors here.
@@ -190,7 +235,11 @@ class ProbabilisticRegistration:
                     f"Fused engine: {pre.n_dilated} dilated cells, "
                     f"{pre.n_lanes} candidate lanes\n"
                 )
-        self.engine = "fused" if self._prepack is not None else "brute"
+        self.engine = (
+            "pool" if self._pool is not None
+            else "fused" if self._prepack is not None
+            else "brute"
+        )
 
         self._lm_config = LMConfig(
             dof=params.dof,
@@ -209,13 +258,70 @@ class ProbabilisticRegistration:
         # Inner solves that ran into max_inner_iterations (the reference runs
         # Ceres unbounded, cc:96 — a hit means results may diverge from it).
         self.inner_cap_hits = 0
-        # Mid-pair moves from the fused engine to the brute engine.
+        # Mid-pair moves from the pooled or fused engine to the brute engine.
         self.engine_fallbacks = 0
         self.current_iteration = 0
         self.cost_drop = 0.0
         self.num_unuseful_iter = 0
         self.mse_prev_it = 0.0
         self._prev_source = self.source_cloud.copy() if params.summary else None
+
+    def _init_pool(self, grid: dict, tg: np.ndarray, plan: dict, np_dtype) -> None:
+        """Build the pool and size its budgets (registration.py:917-986 of
+        the JAX package)."""
+        p = self.params
+        pool = _fp.build_pool_prepack(
+            grid, tg, dtype=np_dtype, plan=plan, k=p.max_neighbours,
+            device=self.device,
+        )
+        # Row budget from the real source's grouping demand: the plan's
+        # target-occupancy proxy undercounts moved sources (they land in
+        # dilated shell cells it scores 0). The class-prefix budgets come
+        # from the same replay; the overflow flag still guards drift.
+        rot = np_quat_to_matrix(np.asarray(p.initial_rotation, np.float64))
+        moved0 = self.filtered_source @ rot.T + np.asarray(p.initial_translation, np.float64)
+        demand, self._pool_class_cum = _fp.estimate_pool_demand_rows(
+            plan, moved0, class_row_ends=pool.class_ends
+        )
+        self._pool_budget_base = max(
+            pool.budget_rows, bucket_rows(int(1.25 * demand), step_bits=3)
+        )
+        self._pool = pool
+        self.out << (
+            f"Pooled engine: {pool.n_dilated} dilated cells, "
+            f"classes {pool.class_widths} x {pool.class_ends}\n"
+        )
+
+    def pool_budgets(self) -> tuple[int, tuple]:
+        """The pooled search's (row budget, class-prefix budgets) at the
+        current escalation rung (registration.py:1331-1362 of the JAX
+        package)."""
+        # Boost the EFFECTIVE budget (the source-rows floor may dominate).
+        budget = round_up(
+            max(self._pool_budget_base, self._src.shape[0] + 4096)
+            << self._pool_budget_boost,
+            2048,
+        )
+        ng_b = round_up(budget, 2 * _fg.BLOCK_GROUPS * _fg.GROUP) // _fg.GROUP
+        class_budgets = _fp.demand_class_budgets(
+            self._pool_class_cum, ng_b, boost=self._pool_budget_boost, cap=ng_b
+        )
+        return budget, class_budgets
+
+    def _pool_search(self, moved):
+        """One pooled search at the current escalation rung:
+        (Correspondences, overflow, points)."""
+        p = self.params
+        pool = self._pool
+        budget, class_budgets = self.pool_budgets()
+        return _fp.fused_pool_search(
+            moved, self._src_valid, pool.select_xyz, pool.pool_idx,
+            pool.class_width_luts, pool.lut_d, pool.origin_d,
+            pool.dims_d, k=p.max_neighbours, radius=p.radius,
+            class_widths=pool.class_widths, class_ends=pool.class_ends,
+            class_budgets=class_budgets, budget_rows=budget,
+            small_unions=pool.small_unions, select_max_w=pool.select_max_w,
+        )
 
     # -- reference API ------------------------------------------------------
 
@@ -240,7 +346,29 @@ class ProbabilisticRegistration:
             )
             t_cum_dev = torch.as_tensor(t_cum[:3, 3], dtype=self.dtype, device=self.device)
             moved = quat_rotate_points(q_cum, self._src) + t_cum_dev
-            if self._prepack is not None:
+            if self._pool is not None:
+                corr, overflow, gathered = self._pool_search(moved)
+                if int(overflow) > 0:
+                    # A row or class-prefix budget overflowed: nothing was
+                    # consumed. Redo the iteration at a doubled budget
+                    # (twice), then on the brute engine for the rest of the
+                    # pair.
+                    self.num_unuseful_iter = unuseful_before
+                    if self._pool_budget_boost < 2:
+                        self._pool_budget_boost += 1
+                        self.out << (
+                            "Pooled-engine budget overflow; retrying with a "
+                            f"{1 << self._pool_budget_boost}x row budget\n"
+                        )
+                        continue
+                    self._pool = None
+                    self.engine_fallbacks += 1
+                    self.out << (
+                        "Pooled-engine budget overflow; falling back to the "
+                        "brute-force engine for this pair\n"
+                    )
+                    continue
+            elif self._prepack is not None:
                 pre = self._prepack
                 corr, overflow, gathered = _fg.fused_grid_search(
                     moved,
@@ -394,6 +522,20 @@ class ProbabilisticRegistration:
         lines = [REPORT_HEADER]
         lines += [r.csv() for r in self.records]
         return "\n".join(lines) + "\n"
+
+
+def _too_dense(grid: dict, n_tgt: int, params: RegistrationParams) -> bool:
+    """``auto``'s density check: a candidate set too close to M is cheaper
+    brute force (registration.py:865-873 of the JAX package)."""
+    return params.search_impl == "auto" and 27 * grid["capacity"] * 8 > n_tgt
+
+
+def _pool_expected(params: RegistrationParams, device) -> bool:
+    """Whether the pooled engine is tried first: asked for, or ``auto`` on
+    a CUDA device."""
+    return params.search_impl == "pool" or (
+        params.search_impl == "auto" and torch.device(device).type == "cuda"
+    )
 
 
 def _check_ported(params: RegistrationParams) -> None:

@@ -33,14 +33,14 @@ from ..core.types import (
     pow2 as _pow2,
     round_up,
 )
-from .fused_pool import _neighbor_rows, _scatter_lut
 
 # Sources per cell-pure group; all rows of a group share one window.
 GROUP = 8
-# Padded source rows are a multiple of this: the JAX package's 16-group
-# kernel blocks. Keeping it keeps every intermediate the same shape there
-# and here, so the two compare array for array.
-_ROW_ALIGN = 16 * GROUP
+# The JAX package's kernel block, in groups. Padded source rows are a
+# multiple of BLOCK_GROUPS * GROUP, which keeps every intermediate the same
+# shape there and here, so the two compare array for array.
+BLOCK_GROUPS = 16
+_ROW_ALIGN = BLOCK_GROUPS * GROUP
 # Dead-candidate coordinate sentinel: squared distances overflow any radius.
 _BIG = 1e30
 # outd value of an empty slot.
@@ -117,8 +117,9 @@ class PrepackedGrid(NamedTuple):
     small_unions: bool = False
 
 
-def dilate_cells_host(grid_host: dict) -> dict | None:
-    """Host-side dilation tables for :func:`build_prepack` (numpy only).
+def dilate_cells_host(grid_host: dict, counts: np.ndarray | None = None) -> dict | None:
+    """Host-side dilation tables for :func:`build_prepack` and the pool
+    plan (numpy only).
 
     The JAX package's numpy branch with ``dense_lut=False`` (its native C++
     twin is held equal to it by tests/test_native.py). Takes the dict from
@@ -127,6 +128,11 @@ def dilate_cells_host(grid_host: dict) -> dict | None:
     built here: the result holds the seeds the device rebuilds it from
     ("d_cells", "prod_d", "d_cells_e", "base_e", "prod_e", "e_dims",
     "off_e").
+
+    ``counts`` overrides the per-cell candidate counts behind the window
+    unions: the dense engine packs from the capacity-capped buckets (the
+    default, live bucket slots), the capacity-free pooled engine passes the
+    full ``cell_count`` so that hot-cell points stay in their windows.
     """
     dims = grid_host["dims"].astype(np.int64)
     dims_d = dims + 2
@@ -151,7 +157,8 @@ def dilate_cells_host(grid_host: dict) -> dict | None:
     ox, oy, oz = np.meshgrid(*([np.arange(-1, 2, dtype=np.int32)] * 3), indexing="ij")
     off_e = (ox + e0 * (oy + e1 * oz)).reshape(27)
     base_e = (x + 2) + np.int32(e0) * ((y + 2) + np.int32(e1) * (z + 2))
-    counts = (grid_host["bucket_idx"] >= 0).sum(axis=1)
+    if counts is None:
+        counts = (grid_host["bucket_idx"] >= 0).sum(axis=1)
 
     dil_e = (base_e[:, None] + off_e[None, :]).reshape(-1)
     # Dense-flag unique: O(prod_e + 27u) beats sorting 27u linear ids.
@@ -273,6 +280,8 @@ def build_prepack(grid_host: dict, bucket_pts: torch.Tensor,
         (``bucket_pts`` in the run's dtype).
       k: expected neighbour count (only sets ``small_unions``).
     """
+    from .fused_pool import _neighbor_rows, _scatter_lut
+
     dil = dilate_cells_host(grid_host)
     if dil is None:
         return None
@@ -469,31 +478,13 @@ def select_windows(padded, cand_xyz, cand_idx, step_rows, width_lut, *,
         return _select_windows_plain(
             padded, cand_xyz, cand_idx, step_rows, width_lut, k=k, kp=kp, r2=r2
         )
-    if dev.type != "cuda":
-        raise ValueError(f"select_windows runs on cpu or cuda tensors, not {dev}")
+    if k < 1:
+        raise ValueError(f"select_windows needs k >= 1, got {k}")
     s = padded.shape[0]
     n_lanes = cand_idx.shape[1]
-    n_win = cand_idx.shape[0]
-    for name, t, dtype, shape in (
-        ("padded", padded, torch.float32, (s, 4)),
-        ("cand_xyz", cand_xyz, torch.float32, (n_win, 3, n_lanes)),
-        ("cand_idx", cand_idx, torch.int32, (n_win, n_lanes)),
-        ("step_rows", step_rows, torch.int32, (s // GROUP,)),
-        ("width_lut", width_lut, torch.int32, (n_win,)),
-    ):
-        if t.device != dev:
-            raise ValueError(f"{name} is on {t.device}, padded on {dev}")
-        if t.dtype != dtype:
-            raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if s % GROUP or k < 1:
-        raise ValueError(f"need rows % {GROUP} == 0 and k >= 1 (rows={s}, k={k})")
-    outd = torch.empty((s, kp), dtype=torch.float32, device=dev)
-    outi = torch.empty((s, kp), dtype=torch.int32, device=dev)
-    planes = tuple(torch.empty((s, kp), dtype=torch.float32, device=dev) for _ in range(3))
+    outd, outi, planes = _select_outputs(
+        "select_windows", padded, cand_xyz, cand_idx, step_rows, width_lut, kp
+    )
     if s == 0:
         return outd, outi, planes
     launch = kernels.load("select_windows")
@@ -512,6 +503,40 @@ def select_windows(padded, cand_xyz, cand_idx, step_rows, width_lut, *,
 
 
 select_windows.launches = 0
+
+
+def _select_outputs(name, padded, cand_xyz, cand_idx, step_rows, width_lut, kp):
+    """Check a CUDA select launch's inputs (device, dtype, shape,
+    contiguity; rows in whole groups) and allocate its (S, kp) outputs:
+    (outd, outi, (x, y, z) planes). Raises ValueError on what the kernels
+    do not take."""
+    dev = padded.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda tensors, not {dev}")
+    s = padded.shape[0]
+    n_lanes = cand_idx.shape[1]
+    n_win = cand_idx.shape[0]
+    for arg, t, dtype, shape in (
+        ("padded", padded, torch.float32, (s, 4)),
+        ("cand_xyz", cand_xyz, torch.float32, (n_win, 3, n_lanes)),
+        ("cand_idx", cand_idx, torch.int32, (n_win, n_lanes)),
+        ("step_rows", step_rows, torch.int32, (s // GROUP,)),
+        ("width_lut", width_lut, torch.int32, (n_win,)),
+    ):
+        if t.device != dev:
+            raise ValueError(f"{arg} is on {t.device}, padded on {dev}")
+        if t.dtype != dtype:
+            raise ValueError(f"{arg} must be {dtype}, got {t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{arg} must have shape {shape}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{arg} must be contiguous")
+    if s % GROUP:
+        raise ValueError(f"need rows % {GROUP} == 0 (rows={s})")
+    outd = torch.empty((s, kp), dtype=torch.float32, device=dev)
+    outi = torch.empty((s, kp), dtype=torch.int32, device=dev)
+    planes = tuple(torch.empty((s, kp), dtype=torch.float32, device=dev) for _ in range(3))
+    return outd, outi, planes
 
 
 def _unsort_results(outd, outi, outp, order, dst, *, k, n, dtype):

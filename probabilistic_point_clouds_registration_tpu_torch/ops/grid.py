@@ -4,7 +4,8 @@
 The target is bucketed into a voxel grid of cell size = search radius ONCE
 per registration; a source's in-radius neighbors all lie in its 3x3x3 cell
 neighborhood. The fused engine (ops/fused_grid.py) prepacks candidate
-windows from these tables. The JAX package's device grid engine
+windows from these tables; the pooled engine (ops/fused_pool.py) reads only
+the cell-sorted view (``buckets=False``). The JAX package's device grid engine
 (``grid_radius_search``, ``merge_overflow``) is not ported yet.
 """
 from __future__ import annotations

@@ -164,7 +164,7 @@ def test_port_imports_without_jax():
         "import probabilistic_point_clouds_registration_tpu_torch as p\n"
         "from probabilistic_point_clouds_registration_tpu_torch import kernels\n"
         "from probabilistic_point_clouds_registration_tpu_torch.ops import "
-        "fused_grid, fused_pool, grid, neighbors, weights\n"
+        "fused_grid, fused_pool, grid, neighbors, select_bitonic, weights\n"
         "from probabilistic_point_clouds_registration_tpu_torch.io import synthetic\n"
         "from probabilistic_point_clouds_registration_tpu_torch.utils import eval, ostream\n"
         "print(sorted(p.__all__))\n"

@@ -130,10 +130,10 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 @pytest.mark.parametrize(
     "override",
-    [dict(search_impl="pool"), dict(search_impl="grid"), dict(search_impl="pallas"),
+    [dict(profile_dir="trace"), dict(search_impl="grid"), dict(search_impl="pallas"),
      dict(source_filter_size=0.1), dict(target_filter_size=0.1),
      dict(trace_inner=True)],
-    ids=["pool", "grid", "pallas", "source-filter", "target-filter", "trace-inner"],
+    ids=["profile-dir", "grid", "pallas", "source-filter", "target-filter", "trace-inner"],
 )
 def test_unported_options_raise(override):
     src, tgt = _clustered_pair(n_src=64, n_tgt=128)
@@ -141,6 +141,174 @@ def test_unported_options_raise(override):
         ProbabilisticRegistration(
             src, tgt, RegistrationParams(radius=0.12, **override), device="cpu"
         )
+
+
+def _hot_pair(n=2500, seed=11, hot=200):
+    """tests/test_fused_pool.py:26-39's pair: a scattered sheet plus one hot
+    blob, the source rotated and shifted."""
+    rng = np.random.default_rng(seed)
+    tgt = rng.uniform(0, 30, size=(n, 3))
+    tgt[:, 2] = rng.normal(scale=0.4, size=n)
+    tgt[:hot] = rng.normal(scale=0.15, size=(hot, 3)) + np.array([15.0, 15.0, 0.0])
+    c, s = np.cos(0.02), np.sin(0.02)
+    rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    src = tgt @ rot.T + np.array([0.3, 0.05, 0.01])
+    return src.astype(np.float32), tgt.astype(np.float32)
+
+
+def test_pool_registration_matches_jax_pool_engine():
+    """tests/test_fused_pool.py:159's registration, both packages on the
+    pooled engine (the JAX side's Pallas select in interpret mode)."""
+    src, tgt = _hot_pair()
+    got = _compare(src, tgt, jax_impl="pool", port_impl="pool", max_neighbours=8,
+                   radius=0.5, n_iter=4, dof=5.0, grid_max_overflow=64)
+    assert got.engine == "pool" and got.engine_fallbacks == 0
+    assert got._pool_budget_boost == 0
+
+
+def _lattice_pair(side, depth):
+    """Every point alone in its cell: each source takes a group of its own."""
+    pts = np.stack(np.meshgrid(np.arange(side), np.arange(side), np.arange(depth)),
+                   -1).reshape(-1, 3)
+    return pts.astype(np.float32), (pts + 0.05).astype(np.float32)
+
+
+def _pool_run(src, tgt, *, starve, **kw):
+    """A pooled registration; ``starve`` drops the ctor's demand-sized row
+    budget to the source-row floor, so that the first search overflows."""
+    params = RegistrationParams(search_impl="pool", max_neighbours=4, radius=0.4,
+                                dtype="float32", verbose=True, **kw)
+    reg = ProbabilisticRegistration(src, tgt, params, device="cpu")
+    assert reg.engine == "pool"
+    if starve:
+        reg._pool_budget_base = 0
+    return reg.align(), reg
+
+
+def test_pool_budget_escalation_recovers_with_the_stall_counter(capsys):
+    """8,000 rows of demand against a 6,144-row budget: the iteration is
+    redone at twice the budget, and the stall counter the discarded check
+    moved is restored (every iteration is unuseful at cost_drop_thresh 2,
+    so a lost restore would end the pair one iteration early)."""
+    src, tgt = _lattice_pair(10, 10)
+    kw = dict(n_iter=6, cost_drop_thresh=2.0, n_cost_drop_it=1)
+    want_T, want = _pool_run(src, tgt, starve=False, **kw)
+    assert "budget overflow" not in capsys.readouterr().out
+    got_T, got = _pool_run(src, tgt, starve=True, **kw)
+    assert "retrying with a 2x row budget" in capsys.readouterr().out
+    assert got._pool_budget_boost == 1 and got.engine_fallbacks == 0
+    assert len(got.records) == len(want.records) == 2
+    np.testing.assert_array_equal(got_T, want_T)
+
+
+def test_pool_overflow_past_the_cap_falls_back_visibly(capsys):
+    """65,536 rows of demand overflow even the 4x budget: the pair moves to
+    the brute engine, says so, counts it, and ends where brute force
+    alone ends."""
+    src, tgt = _lattice_pair(32, 8)
+    kw = dict(n_iter=2, cost_drop_thresh=-1.0)
+    pool_T, pool = _pool_run(src, tgt, starve=True, **kw)
+    out = capsys.readouterr().out
+    assert "retrying with a 4x row budget" in out
+    assert "falling back to the brute-force engine" in out
+    assert pool.engine_fallbacks == 1 and pool._pool is None
+    brute_T, brute = register_pair(
+        src, tgt, RegistrationParams(search_impl="brute", max_neighbours=4, radius=0.4,
+                                     dtype="float32", **kw), device="cpu"
+    )
+    np.testing.assert_array_equal(pool_T, brute_T)
+    assert [r.num_correspondences for r in pool.records] == [
+        r.num_correspondences for r in brute.records
+    ]
+
+
+def test_auto_plans_the_pool_only_for_a_cuda_device(monkeypatch):
+    """prepare_target is host-only: on a CUDA device ``auto`` plans the
+    pool and skips the bucket tensors; on the CPU it keeps the buckets and
+    makes no plan; a declined plan is recorded and adds the buckets."""
+    rng = np.random.default_rng(4)
+    tgt = rng.uniform(0, 30, size=(4000, 3))
+    tgt[:, 2] = rng.normal(scale=0.4, size=4000)  # sparse: the grid is kept
+    params = RegistrationParams(radius=0.5, max_neighbours=8)
+    on_cuda = ProbabilisticRegistration.prepare_target(tgt, params, device="cuda")
+    assert isinstance(on_cuda["pool_plan"], dict)
+    assert "bucket_idx" not in on_cuda["grid"]
+    assert on_cuda["pool_plan"]["widths"][-1] == 128  # planned for cutoff 0
+    on_cpu = ProbabilisticRegistration.prepare_target(tgt, params, device="cpu")
+    assert on_cpu["pool_plan"] is None and "bucket_idx" in on_cpu["grid"]
+    monkeypatch.setattr(t_reg._fp, "plan_pool_host", lambda *a, **kw: None)
+    declined = ProbabilisticRegistration.prepare_target(tgt, params, device="cuda")
+    assert declined["pool_plan"] is False and "bucket_idx" in declined["grid"]
+
+
+def _sheet_pair(hot=0):
+    """A sparse sheet (the grid is kept); ``hot`` points packed into one
+    cell give the grid a hot-cell overflow set at ``grid_max_overflow`` 64."""
+    rng = np.random.default_rng(4)
+    tgt = rng.uniform(0, 30, size=(4000, 3))
+    tgt[:, 2] = rng.normal(scale=0.4, size=4000)
+    tgt[:hot] = rng.uniform(0, 0.4, size=(hot, 3)) + np.array([15.05, 15.05, 0.05])
+    return tgt + np.array([0.2, 0.05, 0.01]), tgt
+
+
+@pytest.mark.parametrize("hot,engine", [(0, "fused"), (60, "brute")])
+def test_target_prepared_for_cuda_runs_on_the_cpu(hot, engine):
+    """A target prepared for the pool (the default device) and handed to a
+    CPU ``auto`` run gets its bucket tensors and overflow split, and the
+    run equals one that prepared its own target."""
+    src, tgt = _sheet_pair(hot)
+    params = RegistrationParams(radius=0.5, max_neighbours=8, n_iter=2,
+                                cost_drop_thresh=-1.0, grid_max_overflow=64)
+    prepared = ProbabilisticRegistration.prepare_target(tgt, params)
+    assert isinstance(prepared["pool_plan"], dict) and "bucket_idx" not in prepared["grid"]
+    got = ProbabilisticRegistration(src, tgt, params, prepared_target=prepared, device="cpu")
+    want = ProbabilisticRegistration(src, tgt, params, device="cpu")
+    assert got.engine == want.engine == engine
+    assert ("overflow_pts" in prepared["grid"]) == (hot > 0)
+    np.testing.assert_array_equal(got.align(), want.align())
+
+
+def test_pool_plan_for_another_cutoff_is_made_again():
+    """A pool plan made for a CUDA device (cutoff 0) is not reused by a CPU
+    run, whose cutoff is 64: the run plans again and equals one that
+    prepared its own target."""
+    src, tgt = _sheet_pair()
+    params = RegistrationParams(search_impl="pool", radius=0.5, max_neighbours=8,
+                                n_iter=2, cost_drop_thresh=-1.0)
+    prepared = ProbabilisticRegistration.prepare_target(tgt, params, device="cuda")
+    assert prepared["pool_cutoff"] == 0 and min(prepared["pool_plan"]["widths"]) == 128
+    got = ProbabilisticRegistration(src, tgt, params, prepared_target=prepared, device="cpu")
+    want = ProbabilisticRegistration(src, tgt, params, device="cpu")
+    assert got._pool.select_max_w == want._pool.select_max_w == 64
+    assert got._pool.class_widths == want._pool.class_widths
+    np.testing.assert_array_equal(got.align(), want.align())
+
+
+def test_kitti_fixture_plan_facts():
+    """The LiDAR fixture's target, rebuilt with the port's generator and
+    host code: capacity 128 with a 3,123-point hot-cell overflow set (the
+    dense engine cannot take it), five pool classes when every class runs a
+    kernel."""
+    from probabilistic_point_clouds_registration_tpu_torch.core.types import pad_cloud
+    from probabilistic_point_clouds_registration_tpu_torch.io import synthetic
+    from probabilistic_point_clouds_registration_tpu_torch.ops import fused_pool, grid
+
+    fixture = json.loads(torch_port_fixture.fixture_path("kitti131k").read_text())
+    spec = torch_port_fixture.PAIRS["kitti131k"]
+    assert fixture["pair"] == spec["pair"]
+    p = spec["params"]
+    _, tgt = torch_port_fixture.make_pair(spec["pair"], synthetic)
+    tg, n_tgt = pad_cloud(tgt, p["pad_multiple"], pad_value=0.0)
+    g = grid.build_grid_host(tg, p["radius"], num_valid=n_tgt,
+                             max_overflow=p["grid_max_overflow"])
+    plan = fused_pool.plan_pool_host(g, tg, select_max_w=0)
+    assert fixture["plan"] == {
+        "capacity": g["capacity"],
+        "overflow_points": int((g["overflow_idx"] >= 0).sum()),
+        "class_widths_cutoff0": plan["widths"],
+    }
+    assert fixture["plan"]["overflow_points"] == 3123
+    assert len(fixture["iterations"]) == p["n_iter"] == 10
 
 
 def test_bench_fixture_still_matches_jax():

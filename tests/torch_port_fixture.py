@@ -1,19 +1,29 @@
-"""Reference fixture for the PyTorch port's main path.
+"""Reference fixtures for the PyTorch port's main path.
 
-Runs the JAX package's registration on the 35k ``bunny_like`` bench pair
-(``bench.py``'s pair and parameters) on the CPU and records the final 4x4
-and every outer iteration's (initial cost, final cost, correspondences).
-``chip_smoke.py`` holds the port's run on the GPU against this file.
+Runs the JAX package's registration of a bench pair on the CPU and records
+the final 4x4 and every outer iteration's (initial cost, final cost,
+correspondences). ``chip_smoke.py`` holds the port's run on the GPU against
+these files. Two pairs:
+
+* ``bunny35k``: ``bench.py``'s 35k ``bunny_like`` pair and parameters
+  (tests/data/torch_port_bunny35k_ref.json);
+* ``kitti131k``: ``benchmarks/bench_kitti.py``'s 131,072-point
+  ``kitti_like`` pair and parameters, 10 fixed outer iterations
+  (tests/data/torch_port_kitti131k_ref.json). Its file also records the
+  plan-level facts of the target grid (capacity, hot-cell overflow count,
+  the pool's class widths at the narrow-class cutoff 0).
 
 The reference runs its XLA grid engine here, whose neighbor sets equal the
-fused engine's (tests/test_fused_grid.py), because the fused engine's
-interpret mode is too slow on a CPU at 35k points. ``outer_chunk=1`` keeps
-the reference on its one-iteration host loop, which is the loop the port
-runs.
+fused and pooled engines' (tests/test_fused_grid.py, tests/test_fused_pool.py;
+the grid engine merges the hot-cell overflow set), because the Pallas
+engines' interpret mode is too slow on a CPU at these sizes. ``outer_chunk=1``
+keeps the reference on its one-iteration host loop, which is the loop the
+port runs.
 
 Regenerate with::
 
-    JAX_PLATFORMS=cpu python tests/torch_port_fixture.py
+    JAX_PLATFORMS=cpu python tests/torch_port_fixture.py bunny35k
+    JAX_PLATFORMS=cpu python tests/torch_port_fixture.py kitti131k
 """
 from __future__ import annotations
 
@@ -24,61 +34,104 @@ from pathlib import Path
 
 import numpy as np
 
-FIXTURE = Path(__file__).resolve().parent / "data" / "torch_port_bunny35k_ref.json"
+DATA = Path(__file__).resolve().parent / "data"
 
-N_POINTS = 35_000
-SEED = 0
-# bench.py:build_pair's misalignment: a rotation about z plus a shift.
-THETA = 0.02
-SHIFT = (0.02, -0.015, 0.01)
-# bench.py:run_once's parameters (outer_chunk aside, see the docstring).
-PARAMS = dict(
-    max_neighbours=20,
-    dof=5.0,
-    radius=0.075,
-    n_iter=15,
-    cost_drop_thresh=-1.0,
-    dtype="float32",
-    pad_multiple=1024,
-    max_inner_iterations=50,
-)
+PAIRS = {
+    "bunny35k": {
+        # bench.py:build_pair: the target rotated about z and shifted.
+        "pair": {"cloud": "bunny_like", "n_points": 35_000, "seed": 0,
+                 "theta": 0.02, "shift": [0.02, -0.015, 0.01]},
+        # bench.py:run_once's parameters (outer_chunk aside).
+        "params": dict(
+            max_neighbours=20, dof=5.0, radius=0.075, n_iter=15,
+            cost_drop_thresh=-1.0, dtype="float32", pad_multiple=1024,
+            max_inner_iterations=50,
+        ),
+    },
+    "kitti131k": {
+        # benchmarks/bench_kitti.py:54-63: ~1 m of ego-motion at 10 Hz.
+        "pair": {"cloud": "kitti_like", "n_points": 131_072, "seed": 0,
+                 "theta": 0.01, "shift": [0.8, 0.1, 0.02]},
+        # benchmarks/bench_kitti.py:65-70 (outer_chunk aside).
+        "params": dict(
+            max_neighbours=20, dof=5.0, radius=0.5, n_iter=10,
+            cost_drop_thresh=-1.0, dtype="float32", pad_multiple=4096,
+            max_inner_iterations=50, grid_max_overflow=4096,
+        ),
+    },
+}
 
 
-def bench_pair(bunny_like):
-    """(source, target) of the bench: the target moved by the known offset."""
-    tgt = bunny_like(N_POINTS, seed=SEED)
-    c, s = np.cos(THETA), np.sin(THETA)
+def fixture_path(name: str) -> Path:
+    return DATA / f"torch_port_{name}_ref.json"
+
+
+FIXTURE = fixture_path("bunny35k")
+
+
+def make_pair(pair: dict, generators) -> tuple[np.ndarray, np.ndarray]:
+    """(source, target) of a pair spec: the target rotated by ``theta``
+    about z and shifted. ``generators`` maps a cloud name to its function
+    (the JAX package's or the port's ``io.synthetic``)."""
+    tgt = getattr(generators, pair["cloud"])(pair["n_points"], seed=pair["seed"])
+    c, s = np.cos(pair["theta"]), np.sin(pair["theta"])
     rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
-    src = tgt @ rot.T + np.array(SHIFT)
-    return src, tgt
+    return tgt @ rot.T + np.array(pair["shift"]), tgt
 
 
-def reference_run(n_iter: int = PARAMS["n_iter"]):
-    """The JAX package's registration of the bench pair: (4x4, records)."""
+def reference_run(name: str = "bunny35k", n_iter: int | None = None):
+    """The JAX package's registration of pair ``name``: (4x4, records)."""
     from probabilistic_point_clouds_registration_tpu.core.params import (
         RegistrationParams,
     )
-    from probabilistic_point_clouds_registration_tpu.io.synthetic import bunny_like
+    from probabilistic_point_clouds_registration_tpu.io import synthetic
     from probabilistic_point_clouds_registration_tpu.models.registration import (
         register_pair,
     )
 
-    src, tgt = bench_pair(bunny_like)
-    params = RegistrationParams(
-        **{**PARAMS, "n_iter": n_iter}, search_impl="grid", outer_chunk=1
-    )
+    spec = PAIRS[name]
+    src, tgt = make_pair(spec["pair"], synthetic)
+    kw = dict(spec["params"])
+    if n_iter is not None:
+        kw["n_iter"] = n_iter
+    params = RegistrationParams(**kw, search_impl="grid", outer_chunk=1)
     final, reg = register_pair(src, tgt, params)
     return final, reg.records
 
 
-def main() -> None:
+def plan_facts(name: str) -> dict:
+    """The JAX package's host facts for pair ``name``'s target: grid
+    capacity, hot-cell overflow count and the pool's class widths when every
+    class runs a kernel (cutoff 0)."""
+    from probabilistic_point_clouds_registration_tpu.core.types import pad_cloud
+    from probabilistic_point_clouds_registration_tpu.io import synthetic
+    from probabilistic_point_clouds_registration_tpu.ops.fused_pool import (
+        plan_pool_host,
+    )
+    from probabilistic_point_clouds_registration_tpu.ops.grid import build_grid_host
+
+    spec = PAIRS[name]
+    p = spec["params"]
+    _, tgt = make_pair(spec["pair"], synthetic)
+    tg, n_tgt = pad_cloud(tgt, p["pad_multiple"], pad_value=0.0)
+    grid = build_grid_host(tg, p["radius"], num_valid=n_tgt,
+                           max_overflow=p.get("grid_max_overflow", 4096))
+    plan = plan_pool_host(grid, tg, select_max_w=0)
+    return {
+        "capacity": int(grid["capacity"]),
+        "overflow_points": int((grid.get("overflow_idx", np.zeros(0)) >= 0).sum()),
+        "class_widths_cutoff0": [int(w) for w in plan["widths"]],
+    }
+
+
+def main(name: str) -> None:
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    sys.path.insert(0, str(FIXTURE.parents[2]))
-    final, records = reference_run()
+    sys.path.insert(0, str(DATA.parents[1]))
+    spec = PAIRS[name]
+    final, records = reference_run(name)
     out = {
-        "pair": {"n_points": N_POINTS, "seed": SEED, "theta": THETA,
-                 "shift": list(SHIFT)},
-        "params": {**PARAMS, "search_impl": "grid", "outer_chunk": 1},
+        "pair": spec["pair"],
+        "params": {**spec["params"], "search_impl": "grid", "outer_chunk": 1},
         "final_transform": np.asarray(final).tolist(),
         "iterations": [
             {
@@ -89,9 +142,12 @@ def main() -> None:
             for r in records
         ],
     }
-    FIXTURE.write_text(json.dumps(out, indent=1) + "\n")
-    print(f"wrote {FIXTURE}")
+    if name != "bunny35k":
+        out["plan"] = plan_facts(name)
+    path = fixture_path(name)
+    path.write_text(json.dumps(out, indent=1) + "\n")
+    print(f"wrote {path}")
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1] if len(sys.argv) > 1 else "bunny35k")

@@ -1,0 +1,133 @@
+"""Time and profile one pair of the PyTorch port on a CUDA device.
+
+    python3 tools/profile_port.py --pair bunny35k --search-impl auto
+    python3 tools/profile_port.py --pair kitti131k --trace build/kitti_trace.json
+
+The pair and its parameters are a fixture's (tests/data/torch_port_<pair>_ref.json).
+After one warm-up pair it times ``--reps`` warm pairs (ctor + ``align()``,
+ending in a synchronize) and then traces one more warm ``align()`` with
+``torch.profiler``. It prints one JSON line: the pair seconds (median and
+each), the ctor / align split of the median pair, the median outer
+iteration over all timed pairs, the select kernels' launches in one timed
+pair, and from the trace the device time by kind, the
+device op count and the device busy share (device time over the traced
+``align()``'s wall time).
+
+``--port-root DIR`` imports the port from DIR instead of this checkout, so
+that two trees are timed with the same script in one run.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+from collections import Counter
+from pathlib import Path
+
+import numpy as np
+
+REPO = Path(__file__).resolve().parent.parent
+# Device-op kinds, by the first matching substring of the kernel's name.
+KINDS = (
+    ("select_windows", "B1"), ("select_bitonic", "B4"), ("gemm", "gemm"),
+    ("sort", "sort"), ("scan", "scan"), ("reduce", "reduce"),
+    ("index", "gather/scatter"), ("gather", "gather/scatter"),
+    ("scatter", "gather/scatter"), ("elementwise", "elementwise"),
+    ("memcpy", "copy"), ("memset", "copy"),
+)
+
+
+def _kind(name: str) -> str:
+    low = name.lower()
+    return next((kind for key, kind in KINDS if key in low), "other")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--pair", choices=("bunny35k", "kitti131k"), default="bunny35k")
+    ap.add_argument("--search-impl", default="auto")
+    ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--trace", help="write the profiler's Chrome trace here (tens of MB)")
+    ap.add_argument("--port-root", type=Path, default=REPO)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_port: no CUDA device")
+    sys.path.insert(0, str(args.port_root.resolve()))
+    import probabilistic_point_clouds_registration_tpu_torch as port
+    from probabilistic_point_clouds_registration_tpu_torch.io import synthetic
+    from probabilistic_point_clouds_registration_tpu_torch.ops import fused_grid, select_bitonic
+
+    fixture = json.loads((REPO / "tests" / "data" / f"torch_port_{args.pair}_ref.json").read_text())
+    pair = fixture["pair"]
+    tgt = getattr(synthetic, pair["cloud"])(pair["n_points"], seed=pair["seed"])
+    c, s = np.cos(pair["theta"]), np.sin(pair["theta"])
+    rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+    src = tgt @ rot.T + np.array(pair["shift"])
+    kw = {k: v for k, v in fixture["params"].items() if k not in ("search_impl", "outer_chunk")}
+    params = port.RegistrationParams(**kw, search_impl=args.search_impl)
+    counters = (fused_grid.select_windows, select_bitonic.select_bitonic)
+
+    def one_pair():
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reg = port.ProbabilisticRegistration(src, tgt, params, device="cuda")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reg.align()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return reg, t2 - t0, t1 - t0, t2 - t1
+
+    one_pair()  # warm-up: kernel builds, allocator, first-call costs
+    runs = [one_pair() for _ in range(args.reps)]
+    totals = [r[1] for r in runs]
+    reg, total, ctor, align = runs[totals.index(statistics.median(totals))]
+    launches = {fn.__name__: fn.launches for fn in counters}
+
+    traced = port.ProbabilisticRegistration(src, tgt, params, device="cuda")
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        traced.align()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if args.trace:
+        Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
+        prof.export_chrome_trace(args.trace)
+    by_kind, ops = Counter(), 0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            by_kind[_kind(evt.name)] += evt.time_range.elapsed_us() / 1e3
+            ops += 1
+    device_ms = sum(by_kind.values())
+    print(json.dumps({
+        "pair": args.pair,
+        "search_impl": args.search_impl,
+        "port": str(Path(port.__file__).resolve().parent),
+        "engine": reg.engine,
+        "pair_s_median": total,
+        "pair_s": totals,
+        "ctor_s": ctor,
+        "align_s": align,
+        "iterations": len(reg.records),
+        "iteration_ms_median": 1e3 * statistics.median(
+            t for r in runs for t in r[0].iteration_times),
+        "launches": launches,
+        "traced_align_s": wall,
+        "device_ms": device_ms,
+        "device_busy_share": device_ms / (1e3 * wall),
+        "device_ops": ops,
+        "device_ms_by_kind": dict(by_kind.most_common()),
+    }))
+
+
+if __name__ == "__main__":
+    main()
