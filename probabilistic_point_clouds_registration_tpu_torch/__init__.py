@@ -8,9 +8,12 @@ module of the same path.
 
 Ported so far: pair registration (``ProbabilisticRegistration``,
 ``register_pair``) with Student-t or Gaussian EM weights, the moments-form
-LM solve, and three search engines: the pooled engine (``auto`` on a CUDA
-device), the dense fused grouped engine (both through the CUDA select
-kernels) and brute force.
+LM solve, and every search engine: the pooled engine (``auto`` on a CUDA
+device) and the dense fused grouped engine (both through the CUDA select
+kernels), the hash-grid engine they fall back to (its k-selection through
+the CUDA row top-k kernel), brute force through the CUDA KNN kernel
+(``search_impl="pallas"``) and streaming brute force. All four TPU kernels
+of the JAX package have a CUDA counterpart.
 """
 
 from .core.params import RegistrationParams

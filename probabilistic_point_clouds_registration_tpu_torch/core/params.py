@@ -10,9 +10,8 @@ reference counterpart. :func:`from_reference_params` carries a JAX-package
 
 Not every knob is honoured by this package yet: ``ProbabilisticRegistration``
 raises ``NotImplementedError`` for the ones whose code is still to be ported
-(voxel filters, the grid/pool/pallas engines, ``trace_inner``,
-``profile_dir``). ``outer_chunk`` is accepted and ignored: the loop runs one
-outer iteration per host step.
+(voxel filters, ``trace_inner``, ``profile_dir``). ``outer_chunk`` is
+accepted and ignored: the loop runs one outer iteration per host step.
 """
 from __future__ import annotations
 
@@ -61,13 +60,14 @@ class RegistrationParams:
     dtype: str = "float32"
     # Pad source/target point counts to multiples of this for static shapes.
     pad_multiple: int = 256
-    # Neighbor-search engine: "auto" (on a CUDA device the capacity-free
-    # pooled engine when the target grid is kept and the pool plan accepts
-    # it; then the fused grouped engine when the grid has no hot-cell
-    # overflow and prepacks; else brute force; on the CPU the pooled step is
-    # skipped) | "pool" (force the pooled engine) | "brute" (always the
-    # streaming tiled engine) | "fused" (force the grouped engine). The JAX
-    # package's "grid" and "pallas" engines are not ported yet.
+    # Neighbor-search engine: "auto" (hash grid when occupancy allows, else
+    # brute force; with a grid, on a CUDA device the capacity-free pooled
+    # engine when the pool plan accepts the scan, then the fused grouped
+    # engine when its prepack fits, else the grid engine; on the CPU the
+    # pooled step is skipped) | "pool" (force the pooled engine) | "brute"
+    # (always the streaming tiled engine) | "grid" (force the hash-grid
+    # engine) | "fused" (force the grouped engine) | "pallas" (brute force
+    # through the hand-written KNN kernel; no grid is built).
     search_impl: str = "auto"
     # Outer iterations fused into one device program in the JAX package;
     # accepted and ignored here (one outer iteration per host step).
@@ -79,8 +79,10 @@ class RegistrationParams:
     # near-sensor LiDAR cell would otherwise force capacity 512 for every
     # source). 0 = pad to the hottest cell (no overflow pass).
     grid_max_overflow: int = 4096
-    # Candidate k-selection inside the JAX package's grid engine (that
-    # engine is not ported yet; kept so the fields match).
+    # Candidate k-selection inside the grid engine: "auto" (the row top-k
+    # kernel on a CUDA device, a stable sort on the CPU) | "topk" | "hier" |
+    # "pallas" | "approx" (see ops.grid.grid_radius_search; every mode is
+    # exact here and returns the same neighbors).
     search_select: str = "auto"
     # Tile size over the target axis in the streaming top-k search.
     search_target_tile: int = 2048

@@ -37,6 +37,8 @@ _ENTRY_POINTS = {
         "select_bitonic_launch",
         [_P] * 10 + [_I] * 3 + [ctypes.c_float, _P],
     ),
+    "row_topk": ("row_topk_launch", [_P] * 3 + [_I] * 3 + [_P]),
+    "brute_knn": ("brute_knn_launch", [_P] * 5 + [_I] * 3 + [_P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}

@@ -19,17 +19,28 @@ ignored), and by contract they give the same host-visible result.
 
 Search engines: "pool" (ops/fused_pool.py, the capacity-free pooled engine,
 through the CUDA select kernels on a GPU), "fused" (ops/fused_grid.py, the
-dense prepack) and "brute" (ops/neighbors.py). ``auto`` on a CUDA device
-takes the pooled engine when the target grid is kept by the density check
-and the pool plan accepts the scan, as the JAX package's ``auto`` does on
-its accelerator; then the fused engine when the grid has no hot-cell
-overflow set and prepacks; otherwise brute force. ``auto`` with
-``device="cpu"`` skips the pooled engine. When the pooled engine's budget
-overflows mid-pair, the iteration is redone at twice the row budget, twice;
-past that, and when the fused engine's group budget overflows, the rest of
-the pair runs on the brute engine (the JAX package falls back to its XLA
-grid engine, not ported yet): the loop says so through the output stream and
-counts it in ``engine_fallbacks``.
+dense prepack), "grid" (ops/grid.py, the hash-grid engine every other grid
+engine falls back to; its k-selection is ``search_select``), "pallas"
+(ops/neighbors_pallas.py, brute force through the KNN kernel; no grid is
+built) and "brute" (ops/neighbors.py). Brute force is also what runs when no
+grid exists: the host build declined, or ``auto``'s density check dropped
+it.
+
+``auto`` with a grid, on a CUDA device, follows the JAX package's ``auto``
+on its accelerator: the pooled engine when the pool plan accepts the scan;
+else the fused engine when the fit estimate holds (grouped rows <= 1.7 x
+padded targets) and it prepacks; else the grid engine. ``auto`` with
+``device="cpu"`` skips the pooled engine and the fit estimate: the fused
+engine when it prepacks, else the grid engine. (The JAX package's ``auto``
+off its accelerator is the grid engine; neighbor sets are equal.) The fused
+engine merges a grid's hot-cell overflow set after its search.
+
+When the pooled engine's budget overflows mid-pair, the iteration is redone
+at twice the row budget, twice; past that, and when the fused engine's group
+budget overflows, the rest of the pair runs on the grid engine, as in the
+JAX package: the loop says so through the output stream and counts it in
+``engine_fallbacks``. A pooled pair uploads the grid's bucket tensors only
+then.
 
 Fidelity notes:
   * The inner solve is seeded with params.initial_rotation/translation every
@@ -59,8 +70,16 @@ from ..core.se3 import (
 from ..core.types import bucket_rows, pad_cloud, round_up
 from ..ops import fused_grid as _fg
 from ..ops import fused_pool as _fp
-from ..ops.grid import add_buckets_host, build_grid_host
+from ..ops.grid import (
+    add_buckets_host,
+    build_grid_host,
+    grid_radius_search,
+    grid_to_device,
+    merge_overflow,
+    pick_source_tile,
+)
 from ..ops.neighbors import radius_search
+from ..ops.neighbors_pallas import pallas_radius_search
 from ..utils.eval import calculate_mse
 from ..utils.ostream import OutputStream
 from .em_lm import LMConfig, em_lm_solve
@@ -70,7 +89,7 @@ REPORT_HEADER = (
     "roll, pitch, yaw, mse_prev_iter, mse_gtruth"
 )
 
-_ENGINES = ("auto", "pool", "fused", "brute")
+_ENGINES = ("auto", "pool", "fused", "grid", "pallas", "brute")
 
 
 @dataclass
@@ -132,7 +151,7 @@ class ProbabilisticRegistration:
         try_pool = _pool_expected(params, device)
         grid = None
         pool_plan = None
-        if params.search_impl in ("auto", "fused", "pool"):
+        if params.search_impl in ("auto", "grid", "fused", "pool"):
             grid = build_grid_host(
                 tg, params.radius, num_valid=n_tgt,
                 max_overflow=params.grid_max_overflow, buckets=not try_pool,
@@ -193,6 +212,9 @@ class ProbabilisticRegistration:
         grid = prepared_target["grid"]
         if grid is not None and _too_dense(grid, self._n_tgt, params):
             grid = None
+        self._grid = None  # the device grid, uploaded lazily
+        self._grid_host = grid
+        self._tg_padded = tg
         self._prepack = None
         self._pool = None
         self._pool_budget_base = 0
@@ -207,37 +229,33 @@ class ProbabilisticRegistration:
                 plan = _fp.plan_pool_host(grid, tg, device=dev) or False
             if plan:
                 self._init_pool(grid, tg, plan, np_dtype)
-        if self._pool is not None or params.search_impl == "pool":
-            grid = None  # no dense prepack beside the pool
-        if grid is not None:
-            # A grid prepared for the pool has no bucket tensors or overflow
-            # split yet (idempotent).
-            add_buckets_host(grid, tg)
-        if grid is not None and "overflow_pts" in grid:
-            # The hot-cell overflow merge is not ported: only brute force
-            # finds those neighbors here.
-            if params.search_impl == "fused":
-                raise NotImplementedError(
-                    "the target grid has a hot-cell overflow set; its merge "
-                    "is not ported yet (use search_impl='brute')"
+        if (self._pool is None and grid is not None
+                and params.search_impl in ("auto", "fused")):
+            # Live bucket slots per cell = min(count, capacity), which needs
+            # no bucket tensors.
+            counts = np.minimum(grid["cell_count"], grid["capacity"])
+            est_rows = int(np.ceil(counts / _fg.GROUP).sum()) * _fg.GROUP
+            dense_fit = est_rows <= 1.7 * tg.shape[0]
+            # Explicit "fused" skips the fit estimate (the runtime overflow
+            # flag still protects correctness), and so does the CPU's auto.
+            if params.search_impl == "fused" or dev.type != "cuda" or dense_fit:
+                g = self._ensure_grid_device()
+                pre = _fg.build_prepack(
+                    grid, g.bucket_pts, g.bucket_idx, k=params.max_neighbours
                 )
-            grid = None
-        if grid is not None:
-            pre = _fg.build_prepack(
-                grid,
-                torch.as_tensor(grid["bucket_pts"].astype(np_dtype), device=dev),
-                torch.as_tensor(grid["bucket_idx"], device=dev),
-                k=params.max_neighbours,
-            )
-            if pre is not None:
-                self._prepack = pre
-                self.out << (
-                    f"Fused engine: {pre.n_dilated} dilated cells, "
-                    f"{pre.n_lanes} candidate lanes\n"
-                )
+                if pre is not None:
+                    self._prepack = pre
+                    self.out << (
+                        f"Fused engine: {pre.n_dilated} dilated cells, "
+                        f"{pre.n_lanes} candidate lanes\n"
+                    )
+        if self._pool is None and grid is not None:
+            self._ensure_grid_device()
         self.engine = (
             "pool" if self._pool is not None
             else "fused" if self._prepack is not None
+            else "grid" if self._grid is not None
+            else "pallas" if params.search_impl == "pallas"
             else "brute"
         )
 
@@ -258,7 +276,7 @@ class ProbabilisticRegistration:
         # Inner solves that ran into max_inner_iterations (the reference runs
         # Ceres unbounded, cc:96 — a hit means results may diverge from it).
         self.inner_cap_hits = 0
-        # Mid-pair moves from the pooled or fused engine to the brute engine.
+        # Mid-pair moves from the pooled or fused engine to the grid engine.
         self.engine_fallbacks = 0
         self.current_iteration = 0
         self.cost_drop = 0.0
@@ -290,6 +308,35 @@ class ProbabilisticRegistration:
         self.out << (
             f"Pooled engine: {pool.n_dilated} dilated cells, "
             f"classes {pool.class_widths} x {pool.class_ends}\n"
+        )
+
+    def _ensure_grid_device(self):
+        """Upload the hash grid (idempotent); returns the HashGrid, or None
+        when no grid exists.
+
+        Pooled pairs defer this: the pooled path never reads the bucket
+        tensors, only the mid-pair budget-overflow fallback does. A grid
+        prepared for the pool gets its bucket tensors and overflow split
+        here.
+        """
+        if self._grid is not None or self._grid_host is None:
+            return self._grid
+        grid = add_buckets_host(self._grid_host, self._tg_padded)
+        self._grid = grid_to_device(grid, np.dtype(self.params.dtype), self.device)
+        n_over = 0 if self._grid.overflow_pts is None else self._grid.overflow_pts.shape[0]
+        self.out << (
+            f"Target grid: {self._grid.cell_ids.shape[0]} occupied cells, "
+            f"capacity {self._grid.capacity}, overflow {n_over}\n"
+        )
+        return self._grid
+
+    def _merge_overflow(self, corr, moved):
+        """Merge the grid's hot-cell overflow set into ``corr``."""
+        g = self._grid
+        p = self.params
+        return merge_overflow(
+            corr, moved, g.overflow_pts, g.overflow_idx, k=p.max_neighbours,
+            radius=p.radius, source_valid=self._src_valid,
         )
 
     def pool_budgets(self) -> tuple[int, tuple]:
@@ -351,8 +398,8 @@ class ProbabilisticRegistration:
                 if int(overflow) > 0:
                     # A row or class-prefix budget overflowed: nothing was
                     # consumed. Redo the iteration at a doubled budget
-                    # (twice), then on the brute engine for the rest of the
-                    # pair.
+                    # (twice), then on the grid engine for the rest of the
+                    # pair (uploaded only now).
                     self.num_unuseful_iter = unuseful_before
                     if self._pool_budget_boost < 2:
                         self._pool_budget_boost += 1
@@ -362,10 +409,11 @@ class ProbabilisticRegistration:
                         )
                         continue
                     self._pool = None
+                    self._ensure_grid_device()
                     self.engine_fallbacks += 1
                     self.out << (
                         "Pooled-engine budget overflow; falling back to the "
-                        "brute-force engine for this pair\n"
+                        "grid engine for this pair\n"
                     )
                     continue
             elif self._prepack is not None:
@@ -386,17 +434,40 @@ class ProbabilisticRegistration:
                 if int(overflow) > 0:
                     # Pathologically scattered sources blew the 2N group
                     # budget: redo this iteration, and the rest of the pair,
-                    # on the brute engine.
+                    # on the grid engine.
                     self._prepack = None
                     self.engine_fallbacks += 1
                     self.num_unuseful_iter = unuseful_before
                     self.out << (
                         "Fused-engine group overflow; falling back to the "
-                        "brute-force engine for this pair\n"
+                        "grid engine for this pair\n"
                     )
                     continue
+                if self._grid.overflow_pts is not None:
+                    # The merge can reorder or replace selections: gather
+                    # again.
+                    corr = self._merge_overflow(corr, moved)
+                    gathered = self._tgt[corr.indices.long()]
+            elif self._grid is not None:
+                g = self._grid
+                corr = grid_radius_search(
+                    moved, g.bucket_pts, g.bucket_idx, g.cell_ids, g.origin,
+                    g.dims, g.lut,
+                    k=p.max_neighbours,
+                    radius=p.radius,
+                    capacity=g.capacity,
+                    source_valid=self._src_valid,
+                    source_tile=pick_source_tile(g.capacity),
+                    select_impl=p.search_select,
+                )
+                if g.overflow_pts is not None:
+                    corr = self._merge_overflow(corr, moved)
+                gathered = self._tgt[corr.indices.long()]
             else:
-                corr = radius_search(
+                search = (
+                    pallas_radius_search if p.search_impl == "pallas" else radius_search
+                )
+                corr = search(
                     moved,
                     self._tgt,
                     k=p.max_neighbours,

@@ -16,6 +16,8 @@ among equal distances exactly as ``lax.top_k`` does, and the final k are
 re-sorted (stably) by exactly recomputed distances. Both clouds are
 centred on the valid targets' bbox midpoint before the matmul expansion,
 which shrinks its cancellation error from eps*|coords|^2 to eps*extent^2/4.
+``exact=True`` selects by direct-difference distances instead (no centring,
+no re-sort): the hot-cell overflow merge of the grid engines uses it.
 """
 from __future__ import annotations
 
@@ -34,6 +36,17 @@ def _pairwise_sq_dists(src: torch.Tensor, tgt: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(s2 + t2 - 2.0 * cross, 0.0)
 
 
+def bbox_center(target: torch.Tensor, target_valid: torch.Tensor) -> torch.Tensor:
+    """(3,) midpoint of the valid targets' bounding box; 0 on an axis with
+    no finite extent (a target of all padding)."""
+    tv3 = target_valid.bool()[:, None]
+    lo = torch.amin(torch.where(tv3, target, math.inf), dim=0)
+    hi = torch.amax(torch.where(tv3, target, -math.inf), dim=0)
+    return torch.where(
+        torch.isfinite(lo) & torch.isfinite(hi), (lo + hi) * 0.5, 0.0
+    )
+
+
 def topk_neighbors(
     source: torch.Tensor,
     target: torch.Tensor,
@@ -43,13 +56,19 @@ def topk_neighbors(
     target_valid: torch.Tensor,
     source_tile: int = 4096,
     target_tile: int = 2048,
+    exact: bool = False,
 ):
     """K nearest target points per source point (unbounded radius).
 
+    ``exact`` computes the tile distances in the direct (s - t)^2 form
+    instead of the matmul expansion, whose float32 error (~eps * coordinate
+    magnitude squared) corrupts the selection at LiDAR coordinate scales.
+    Meant for small target sets (the hot-cell overflow merge).
+
     Returns (indices (N, k) int32, sq_dists (N, k), found (N, k) bool),
-    sorted ascending by exactly recomputed squared distance; ``found`` is
-    False for slots beyond the number of valid targets and for invalid
-    source rows.
+    sorted ascending by exactly recomputed squared distance (with ``exact``:
+    in selection order, which is that order already); ``found`` is False for
+    slots beyond the number of valid targets and for invalid source rows.
     """
     n = source.shape[0]
     m = target.shape[0]
@@ -60,14 +79,11 @@ def topk_neighbors(
     m_pad = round_up(m, target_tile)
     tgt = torch.nn.functional.pad(target, (0, 0, 0, m_pad - m))
     tgt_valid = torch.nn.functional.pad(target_valid.bool(), (0, m_pad - m))
-    tv3 = tgt_valid[:, None]
-    lo = torch.amin(torch.where(tv3, tgt, inf), dim=0)
-    hi = torch.amax(torch.where(tv3, tgt, -inf), dim=0)
-    center = torch.where(
-        torch.isfinite(lo) & torch.isfinite(hi), (lo + hi) * 0.5, 0.0
-    )
-    src = source - center
-    tgt = tgt - center
+    src = source
+    if not exact:
+        center = bbox_center(tgt, tgt_valid)
+        src = source - center
+        tgt = tgt - center
 
     best_d_all, best_i_all = [], []
     for s0 in range(0, n, source_tile):
@@ -77,7 +93,11 @@ def topk_neighbors(
         best_i = torch.full((s, k), m, dtype=torch.int32, device=dev)
         for start in range(0, m_pad, target_tile):
             tile = tgt[start:start + target_tile]
-            d2 = _pairwise_sq_dists(src_blk, tile)
+            if exact:
+                diff = src_blk[:, None, :] - tile[None, :, :]
+                d2 = torch.sum(diff * diff, dim=-1)
+            else:
+                d2 = _pairwise_sq_dists(src_blk, tile)
             d2 = torch.where(tgt_valid[start:start + target_tile][None, :], d2, inf)
             tile_ids = torch.arange(
                 start, start + target_tile, dtype=torch.int32, device=dev
@@ -99,9 +119,10 @@ def topk_neighbors(
     diff = source[:, None, :] - target[safe_i.long()]
     exact_d = torch.sum(diff * diff, dim=-1)
     sq_dists = torch.where(found, exact_d, inf)
-    sq_dists, order = torch.sort(sq_dists, dim=1, stable=True)
-    safe_i = torch.gather(safe_i, 1, order)
-    found = torch.gather(found, 1, order)
+    if not exact:
+        sq_dists, order = torch.sort(sq_dists, dim=1, stable=True)
+        safe_i = torch.gather(safe_i, 1, order)
+        found = torch.gather(found, 1, order)
     return safe_i, sq_dists, found
 
 

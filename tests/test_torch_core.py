@@ -106,18 +106,28 @@ def test_pad_cloud_and_valid_mask_equal_jax():
     )
 
 
-def test_from_reference_params_carries_every_field():
+@pytest.mark.parametrize(
+    "search_impl,search_select",
+    [("fused", "auto"), ("grid", "topk"), ("grid", "hier"), ("grid", "pallas"),
+     ("grid", "approx"), ("pallas", "auto"), ("pool", "auto"), ("brute", "auto")],
+)
+def test_from_reference_params_carries_every_field(search_impl, search_select):
+    import dataclasses
+
     ref = j_params.RegistrationParams(
         max_neighbours=7, dof=math.inf, radius=0.3, n_iter=9, cost_drop_thresh=-1.0,
         initial_rotation=(0.0, 1.0, 0.0, 0.0), pad_multiple=1024,
-        max_inner_iterations=50, search_impl="fused", outer_chunk=15,
+        max_inner_iterations=50, search_impl=search_impl, outer_chunk=15,
+        search_select=search_select,
     )
     got = t_params.from_reference_params(ref)
     assert isinstance(got, t_params.RegistrationParams)
-    import dataclasses
-
     assert dataclasses.asdict(got) == dataclasses.asdict(ref)
     assert got.is_gaussian
+    assert (got.search_impl, got.search_select) == (search_impl, search_select)
+    assert [f.name for f in dataclasses.fields(got)] == [
+        f.name for f in dataclasses.fields(ref)]
+    got.validate()
 
 
 def _weights_fixture():
@@ -164,7 +174,8 @@ def test_port_imports_without_jax():
         "import probabilistic_point_clouds_registration_tpu_torch as p\n"
         "from probabilistic_point_clouds_registration_tpu_torch import kernels\n"
         "from probabilistic_point_clouds_registration_tpu_torch.ops import "
-        "fused_grid, fused_pool, grid, neighbors, select_bitonic, weights\n"
+        "fused_grid, fused_pool, grid, neighbors, neighbors_pallas, select_bitonic, "
+        "select_pallas, weights\n"
         "from probabilistic_point_clouds_registration_tpu_torch.io import synthetic\n"
         "from probabilistic_point_clouds_registration_tpu_torch.utils import eval, ostream\n"
         "print(sorted(p.__all__))\n"

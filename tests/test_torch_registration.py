@@ -99,8 +99,9 @@ def test_brute_registration_matches_jax(dof, dtype):
 
 def test_group_overflow_falls_back_to_brute_visibly(capsys):
     """Scattered sources blow the fused engine's group budget: the pair
-    moves to the brute engine, says so, counts it, and ends where the brute
-    engine alone ends."""
+    moves to the grid engine (brute force, before the grid engine was
+    ported), says so, counts it, and ends where the grid engine alone and
+    the independent brute engine end."""
     xs = np.arange(8)
     pts = np.stack(np.meshgrid(xs, xs, np.arange(4)), -1).reshape(-1, 3)
     src = pts.astype(np.float32)
@@ -111,14 +112,17 @@ def test_group_overflow_falls_back_to_brute_visibly(capsys):
         src, tgt, RegistrationParams(search_impl="fused", **kw), device="cpu"
     )
     assert fused.engine == "fused" and fused.engine_fallbacks == 1
-    assert "falling back to the brute-force engine" in capsys.readouterr().out
-    brute_T, brute = register_pair(
-        src, tgt, RegistrationParams(search_impl="brute", **kw), device="cpu"
-    )
-    np.testing.assert_array_equal(fused_T, brute_T)
-    assert [r.num_correspondences for r in fused.records] == [
-        r.num_correspondences for r in brute.records
-    ]
+    assert fused._prepack is None and fused._grid is not None
+    assert "falling back to the grid engine" in capsys.readouterr().out
+    for impl in ("grid", "brute"):
+        other_T, other = register_pair(
+            src, tgt, RegistrationParams(search_impl=impl, **kw), device="cpu"
+        )
+        assert other.engine == impl and other.engine_fallbacks == 0
+        np.testing.assert_array_equal(fused_T, other_T)
+        assert [r.num_correspondences for r in fused.records] == [
+            r.num_correspondences for r in other.records
+        ]
 
 
 def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
@@ -130,10 +134,10 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
 
 @pytest.mark.parametrize(
     "override",
-    [dict(profile_dir="trace"), dict(search_impl="grid"), dict(search_impl="pallas"),
+    [dict(profile_dir="trace"), dict(search_impl="no-such-engine"),
      dict(source_filter_size=0.1), dict(target_filter_size=0.1),
      dict(trace_inner=True)],
-    ids=["profile-dir", "grid", "pallas", "source-filter", "target-filter", "trace-inner"],
+    ids=["profile-dir", "unknown-engine", "source-filter", "target-filter", "trace-inner"],
 )
 def test_unported_options_raise(override):
     src, tgt = _clustered_pair(n_src=64, n_tgt=128)
@@ -203,23 +207,27 @@ def test_pool_budget_escalation_recovers_with_the_stall_counter(capsys):
 
 def test_pool_overflow_past_the_cap_falls_back_visibly(capsys):
     """65,536 rows of demand overflow even the 4x budget: the pair moves to
-    the brute engine, says so, counts it, and ends where brute force
-    alone ends."""
+    the grid engine, whose bucket tensors are uploaded only then, says so,
+    counts it, and ends where the grid engine alone and the independent
+    brute engine end."""
     src, tgt = _lattice_pair(32, 8)
     kw = dict(n_iter=2, cost_drop_thresh=-1.0)
     pool_T, pool = _pool_run(src, tgt, starve=True, **kw)
     out = capsys.readouterr().out
     assert "retrying with a 4x row budget" in out
-    assert "falling back to the brute-force engine" in out
-    assert pool.engine_fallbacks == 1 and pool._pool is None
-    brute_T, brute = register_pair(
-        src, tgt, RegistrationParams(search_impl="brute", max_neighbours=4, radius=0.4,
-                                     dtype="float32", **kw), device="cpu"
-    )
-    np.testing.assert_array_equal(pool_T, brute_T)
-    assert [r.num_correspondences for r in pool.records] == [
-        r.num_correspondences for r in brute.records
-    ]
+    assert "falling back to the grid engine" in out
+    assert out.index("retrying with a 4x") < out.index("Target grid:")  # lazy upload
+    assert pool.engine_fallbacks == 1 and pool._pool is None and pool._grid is not None
+    for impl in ("grid", "brute"):
+        other_T, other = register_pair(
+            src, tgt, RegistrationParams(search_impl=impl, max_neighbours=4, radius=0.4,
+                                         dtype="float32", **kw), device="cpu"
+        )
+        assert other.engine == impl
+        np.testing.assert_array_equal(pool_T, other_T)
+        assert [r.num_correspondences for r in pool.records] == [
+            r.num_correspondences for r in other.records
+        ]
 
 
 def test_auto_plans_the_pool_only_for_a_cuda_device(monkeypatch):
@@ -251,11 +259,12 @@ def _sheet_pair(hot=0):
     return tgt + np.array([0.2, 0.05, 0.01]), tgt
 
 
-@pytest.mark.parametrize("hot,engine", [(0, "fused"), (60, "brute")])
+@pytest.mark.parametrize("hot,engine", [(0, "fused"), (60, "fused")])
 def test_target_prepared_for_cuda_runs_on_the_cpu(hot, engine):
     """A target prepared for the pool (the default device) and handed to a
-    CPU ``auto`` run gets its bucket tensors and overflow split, and the
-    run equals one that prepared its own target."""
+    CPU ``auto`` run gets its bucket tensors and overflow split (the fused
+    engine merges the hot-cell overflow set), and the run equals one that
+    prepared its own target."""
     src, tgt = _sheet_pair(hot)
     params = RegistrationParams(radius=0.5, max_neighbours=8, n_iter=2,
                                 cost_drop_thresh=-1.0, grid_max_overflow=64)
@@ -320,3 +329,135 @@ def test_bench_fixture_still_matches_jax():
         assert rec.num_correspondences == want["correspondences"]
         np.testing.assert_allclose(rec.initial_cost, want["initial_cost"], rtol=1e-6)
         np.testing.assert_allclose(rec.final_cost, want["final_cost"], rtol=1e-6)
+
+
+# -- the grid engine, the KNN-kernel brute engine, and what falls back to them --
+
+
+@pytest.mark.parametrize(
+    "dtype,select",
+    [("float32", "auto"), ("float32", "pallas"), ("float32", "hier"),
+     ("float32", "approx"), ("float64", "topk")],
+)
+def test_grid_registration_matches_jax_grid_engine(dtype, select):
+    """``search_impl="grid"`` on the hot-blob pair (capacity 8, a hot-cell
+    overflow set that the merge brings back) against the JAX package's grid
+    engine. The port's select modes all return "topk"'s slots; the JAX side
+    runs "topk" for "approx" (its approximate top-k promises recall 0.99
+    only) and its Pallas kernel in interpret mode for "pallas"."""
+    src, tgt = _hot_pair()
+    j_select = {"pallas": "pallas_interpret", "approx": "topk"}.get(select, select)
+    cost_rtol, t_atol = (1e-5, 1e-5) if dtype == "float32" else (1e-9, 1e-9)
+    kw = dict(dtype=dtype, cost_drop_thresh=-1.0, max_neighbours=8, radius=0.5,
+              n_iter=4, dof=5.0, grid_max_overflow=64)
+    want_T, want = j_register_pair(
+        src, tgt, JParams(search_impl="grid", search_select=j_select, outer_chunk=1, **kw)
+    )
+    got_T, got = register_pair(
+        src, tgt, RegistrationParams(search_impl="grid", search_select=select, **kw),
+        device="cpu",
+    )
+    assert got.engine == "grid" and got.engine_fallbacks == 0
+    assert got._grid.overflow_pts is not None and got._prepack is None
+    assert len(got.records) == len(want.records) == 4
+    for g, w in zip(got.records, want.records):
+        assert g.num_correspondences == w.num_correspondences
+        np.testing.assert_allclose(g.initial_cost, w.initial_cost, rtol=cost_rtol)
+        np.testing.assert_allclose(g.final_cost, w.final_cost, rtol=cost_rtol)
+    np.testing.assert_allclose(got_T, want_T, rtol=0, atol=t_atol)
+
+
+def test_grid_registration_on_the_bunny_pair_matches_jax():
+    src, tgt = _bunny_pair()
+    got = _compare(src, tgt, jax_impl="grid", port_impl="grid", max_neighbours=20,
+                   radius=0.1, n_iter=3, dof=5.0, pad_multiple=1024)
+    assert got.engine == "grid"
+
+
+@pytest.mark.parametrize(
+    "dof,dtype", [(5.0, "float32"), (float("inf"), "float64")],
+    ids=["t5-float32", "gaussian-float64"],
+)
+def test_pallas_registration_matches_jax_brute_engine(dof, dtype):
+    """``search_impl="pallas"``: the JAX package takes its KNN kernel only on
+    its accelerator and runs its XLA brute engine elsewhere, so on the CPU
+    the other side of this test is the JAX brute engine, and the port's side
+    is the CUDA kernel's plain twin. No grid is built."""
+    src, tgt = _clustered_pair(n_src=400, n_tgt=600, seed=2)
+    got = _compare(src, tgt, jax_impl="pallas", port_impl="pallas", dtype=dtype,
+                   max_neighbours=8, radius=0.1, n_iter=2, dof=dof)
+    assert got.engine == "pallas" and got._grid_host is None and got._grid is None
+
+
+def test_pallas_registration_on_the_bunny_pair_matches_jax():
+    src, tgt = _bunny_pair(3000)
+    got = _compare(src, tgt, jax_impl="pallas", port_impl="pallas", max_neighbours=20,
+                   radius=0.1, n_iter=2, dof=5.0, pad_multiple=1024)
+    assert got.engine == "pallas"
+
+
+def _hot_cluster_pair(n_src=3000, n_tgt=4096, n_clusters=80, hot=700, seed=0):
+    """Clusters dense enough for the fused engine's group budget, plus one
+    blob hot enough that the grid caps its capacity (128) and strands 158
+    points in the overflow set at ``grid_max_overflow`` 200."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0, 1.6, size=(n_clusters, 3))
+    tgt = centers[rng.integers(0, n_clusters, n_tgt)] + rng.normal(scale=0.025, size=(n_tgt, 3))
+    tgt[:hot] = centers[0] + rng.normal(scale=0.01, size=(hot, 3))
+    src = centers[rng.integers(0, n_clusters, n_src)] + rng.normal(scale=0.025, size=(n_src, 3))
+    src[:200] = centers[0] + rng.normal(scale=0.02, size=(200, 3))
+    src = src + np.array([0.02, -0.015, 0.01])
+    return src.astype(np.float32), tgt.astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fused_registration_merges_the_overflow_set_like_jax(dtype):
+    """``search_impl="fused"`` on a grid with a hot-cell overflow set: the
+    dense engine merges the set after its search and gathers again, as the
+    JAX fused engine does (its select kernel in interpret mode)."""
+    src, tgt = _hot_cluster_pair()
+    got = _compare(src, tgt, jax_impl="fused", port_impl="fused", dtype=dtype,
+                   max_neighbours=10, radius=0.12, n_iter=3, dof=5.0,
+                   grid_max_overflow=200)
+    assert got.engine == "fused" and got.engine_fallbacks == 0
+    assert int((got._grid.overflow_idx >= 0).sum()) == 158
+    # The overflow points are somebody's neighbours: without the merge the
+    # counts would differ from the grid engine's.
+    grid_T, grid = register_pair(
+        src, tgt, RegistrationParams(search_impl="grid", dtype=dtype, cost_drop_thresh=-1.0,
+                                     max_neighbours=10, radius=0.12, n_iter=3, dof=5.0,
+                                     grid_max_overflow=200), device="cpu")
+    assert [r.num_correspondences for r in got.records] == [
+        r.num_correspondences for r in grid.records]
+
+
+def test_pool_that_declines_runs_the_grid_engine(monkeypatch):
+    """A declined pool plan leaves the grid engine, not brute force (the
+    engine ``auto`` on a CUDA device ends on too when the fused engine's
+    fit estimate fails)."""
+    monkeypatch.setattr(t_reg._fp, "plan_pool_host", lambda *a, **kw: None)
+    src, tgt = _sheet_pair(60)
+    params = RegistrationParams(search_impl="pool", radius=0.5, max_neighbours=8,
+                                n_iter=2, cost_drop_thresh=-1.0, grid_max_overflow=64)
+    pool_T, pool = register_pair(src, tgt, params, device="cpu")
+    assert pool.engine == "grid" and pool._pool is None
+    grid_T, _ = register_pair(
+        src, tgt, RegistrationParams(**{**params.__dict__, "search_impl": "grid"}),
+        device="cpu",
+    )
+    np.testing.assert_array_equal(pool_T, grid_T)
+
+
+def test_auto_on_a_dense_cloud_keeps_brute_force():
+    """``auto``'s density check drops the grid (27 * capacity * 8 > M): the
+    only place left where brute force runs without being asked for."""
+    src, tgt = _clustered_pair(n_src=400, n_tgt=600, seed=2)
+    reg = ProbabilisticRegistration(
+        src, tgt, RegistrationParams(radius=0.1, max_neighbours=8), device="cpu"
+    )
+    assert reg.engine == "brute" and reg._grid_host is None
+    forced = ProbabilisticRegistration(
+        src, tgt, RegistrationParams(radius=0.1, max_neighbours=8, search_impl="grid"),
+        device="cpu",
+    )
+    assert forced.engine == "grid"

@@ -2,6 +2,8 @@
 
     python3 tools/profile_port.py --pair bunny35k --search-impl auto
     python3 tools/profile_port.py --pair kitti131k --trace build/kitti_trace.json
+    python3 tools/profile_port.py --pair kitti131k --search-impl grid --grid-budget-mb 1024
+    python3 tools/profile_port.py --pair bunny35k --search-impl pallas
 
 The pair and its parameters are a fixture's (tests/data/torch_port_<pair>_ref.json).
 After one warm-up pair it times ``--reps`` warm pairs (ctor + ``align()``,
@@ -13,12 +15,17 @@ pair, and from the trace the device time by kind, the
 device op count and the device busy share (device time over the traced
 ``align()``'s wall time).
 
-``--port-root DIR`` imports the port from DIR instead of this checkout, so
-that two trees are timed with the same script in one run.
+``--search-impl`` takes any engine of the port (auto, pool, fused, grid,
+pallas, brute) and ``--search-select`` the grid engine's k-selection.
+``--grid-budget-mb`` sets the grid engine's candidate-buffer budget
+(``ops.grid.SOURCE_TILE_BUDGET_BYTES``, which sizes its source blocks) for
+this run. ``--port-root DIR`` imports the port from DIR instead of this
+checkout, so that two trees are timed with the same script in one run.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import statistics
 import sys
@@ -31,7 +38,8 @@ import numpy as np
 REPO = Path(__file__).resolve().parent.parent
 # Device-op kinds, by the first matching substring of the kernel's name.
 KINDS = (
-    ("select_windows", "B1"), ("select_bitonic", "B4"), ("gemm", "gemm"),
+    ("select_windows", "B1"), ("select_bitonic", "B4"), ("row_topk", "B2"),
+    ("brute_knn", "B3"), ("gemm", "gemm"),
     ("sort", "sort"), ("scan", "scan"), ("reduce", "reduce"),
     ("index", "gather/scatter"), ("gather", "gather/scatter"),
     ("scatter", "gather/scatter"), ("elementwise", "elementwise"),
@@ -48,6 +56,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pair", choices=("bunny35k", "kitti131k"), default="bunny35k")
     ap.add_argument("--search-impl", default="auto")
+    ap.add_argument("--search-select", default="auto")
+    ap.add_argument("--grid-budget-mb", type=int,
+                    help="candidate-buffer budget of the grid engine's source blocks")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--trace", help="write the profiler's Chrome trace here (tens of MB)")
     ap.add_argument("--port-root", type=Path, default=REPO)
@@ -60,7 +71,21 @@ def main() -> None:
     sys.path.insert(0, str(args.port_root.resolve()))
     import probabilistic_point_clouds_registration_tpu_torch as port
     from probabilistic_point_clouds_registration_tpu_torch.io import synthetic
-    from probabilistic_point_clouds_registration_tpu_torch.ops import fused_grid, select_bitonic
+    from probabilistic_point_clouds_registration_tpu_torch.ops import grid
+
+    if args.grid_budget_mb:
+        if not hasattr(grid, "SOURCE_TILE_BUDGET_BYTES"):
+            raise SystemExit(f"profile_port: the port at {args.port_root} has no grid engine")
+        grid.SOURCE_TILE_BUDGET_BYTES = args.grid_budget_mb << 20
+    # The kernel wrappers this tree has (an older tree under --port-root
+    # lacks the later ones).
+    counters = []
+    for module, fn in (("fused_grid", "select_windows"), ("select_bitonic", "select_bitonic"),
+                       ("select_pallas", "pallas_row_topk"), ("neighbors_pallas", "brute_knn")):
+        try:
+            counters.append(getattr(importlib.import_module(f"{port.__name__}.ops.{module}"), fn))
+        except ImportError:
+            continue
 
     fixture = json.loads((REPO / "tests" / "data" / f"torch_port_{args.pair}_ref.json").read_text())
     pair = fixture["pair"]
@@ -69,8 +94,8 @@ def main() -> None:
     rot = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
     src = tgt @ rot.T + np.array(pair["shift"])
     kw = {k: v for k, v in fixture["params"].items() if k not in ("search_impl", "outer_chunk")}
-    params = port.RegistrationParams(**kw, search_impl=args.search_impl)
-    counters = (fused_grid.select_windows, select_bitonic.select_bitonic)
+    params = port.RegistrationParams(**kw, search_impl=args.search_impl,
+                                     search_select=args.search_select)
 
     def one_pair():
         for fn in counters:
@@ -88,7 +113,8 @@ def main() -> None:
     one_pair()  # warm-up: kernel builds, allocator, first-call costs
     runs = [one_pair() for _ in range(args.reps)]
     totals = [r[1] for r in runs]
-    reg, total, ctor, align = runs[totals.index(statistics.median(totals))]
+    # median_low: one of the pairs that ran, also for an even --reps.
+    reg, total, ctor, align = runs[totals.index(statistics.median_low(totals))]
     launches = {fn.__name__: fn.launches for fn in counters}
 
     traced = port.ProbabilisticRegistration(src, tgt, params, device="cuda")
@@ -111,6 +137,8 @@ def main() -> None:
     print(json.dumps({
         "pair": args.pair,
         "search_impl": args.search_impl,
+        "search_select": args.search_select,
+        "grid_budget_mb": getattr(grid, "SOURCE_TILE_BUDGET_BYTES", 0) >> 20,
         "port": str(Path(port.__file__).resolve().parent),
         "engine": reg.engine,
         "pair_s_median": total,
