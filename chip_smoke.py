@@ -7,7 +7,8 @@ Run from the repository root, with no arguments:
 It builds the port's CUDA kernels from ``csrc/`` (one nvcc per source, in
 parallel) and then, raising on the first failure:
 
-1. prints the card, the build seconds and each kernel's ptxas registers;
+1. prints the card, the build seconds and, per kernel function, ptxas's
+   registers, spill bytes and static shared memory;
 2. the dense engine: holds B1 (``select_windows``) bit for bit against its
    plain twin at the dense bench shapes and on edge cases, and registers
    the 35k ``bunny_like`` bench pair with ``search_impl="fused"``;
@@ -24,15 +25,21 @@ parallel) and then, raising on the first failure:
 6. the same on the LiDAR pair (tests/data/torch_port_kitti131k_ref.json);
 7. holds B2 (``pallas_row_topk``) bit for bit against its twin on the real
    candidate-distance matrix of the first source block of both pairs and on
-   edge cases; times B2, the twin and ``torch.topk`` (the library call);
+   edge cases (all-+inf rows, ties, ragged and short rows, a base that is
+   only 4-byte aligned, exactly k finite entries at a row's far end, a
+   staging buffer that fills on a tie); times B2, the twin and
+   ``torch.topk`` (the library call);
 8. holds ``grid_radius_search`` with ``select_impl="pallas"`` slot for slot
    against ``"topk"`` on both pairs, the overflow merge included;
 9. the grid path: ``search_impl="grid"``, ``search_select="pallas"`` on both
    pairs against the fixtures;
 10. holds B3 (``brute_knn``) bit for bit against its twin on the bunny pair
-    (35,840 x 35,840) and on edge cases; times both;
+    (35,840 x 35,840) and on edge cases (ragged target tiles and source
+    blocks, fewer targets than a warp, 33 targets at one distance); times
+    both;
 11. the KNN-kernel path: ``search_impl="pallas"`` on the bunny pair against
-    the fixture, and one timed 131k x 131k B3 search on the LiDAR pair;
+    the fixture, and one timed 131k x 131k B3 search on the LiDAR pair, every
+    row of it held against the twin;
 12. a forced fallback: a pooled pair whose row budget is held at its floor
     overflows three times and ends on the grid engine, where
     ``search_impl="grid"`` alone ends.
@@ -46,12 +53,17 @@ there is one, and its bound on the same inputs (B1, B4: the class passes of
 step 3; B2: the matrices of step 7; B3: the bunny search of step 10), then
 ``{"ok": true, "device": ...}``. The bound is the larger of the bytes the
 function must move (inputs once, outputs once) over 3.35 TB/s and its
-float32 operations over 67 TFLOP/s (NVIDIA's H100 SXM data sheet). It
-imports neither JAX nor the JAX package.
+float32 operations over 67 TFLOP/s (NVIDIA's H100 SXM data sheet). Beside
+B3's bound the script prints the floor its contract sets: the distance must
+be rounded operation by operation (no fused multiply-add), about 10 unfused
+float32 operations a pair, at half the data sheet's rate, which counts a
+fused multiply-add as two operations. It imports neither JAX nor the JAX
+package.
 """
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -77,12 +89,19 @@ KERNELS = {
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
+# Unfused float32 operations per (source, target) pair of B3's contract: 3
+# multiplies and 2 adds for the cross term, s2 + t2, the multiply by 2, the
+# subtraction, the clamp and the compare.
+B3_OPERATIONS_PER_PAIR = 10
 TRANSFORM_ATOL = 1e-4  # final 4x4 against the fixture
 COUNT_RTOL = 1e-4  # per-iteration correspondence counts against the fixture
 
 
 def _cuda_ms(fn, reps: int = 20) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events), warm."""
+    """Median device time of ``fn`` over ``reps`` runs (CUDA events), warm.
+    The device is kept busy (a spin of about 0.1 ms) while the host enqueues
+    the events and ``fn``'s launches, so that a kernel shorter than its
+    wrapper's host time is not charged the wait for its own launch."""
     import torch
 
     fn()
@@ -90,6 +109,7 @@ def _cuda_ms(fn, reps: int = 20) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(200_000)
         start.record()
         fn()
         end.record()
@@ -181,6 +201,22 @@ def _edge_case(torch, fg, *, seed, lattice, n_lanes, n_win=48, n_groups=512):
     )
 
 
+def _ptxas_summary(log: str) -> str:
+    """One line from ``nvcc -Xptxas -v``'s output: per kernel function its
+    registers, spill bytes (stores + loads) and static shared memory."""
+    parts = []
+    for entry in log.split("Compiling entry function")[1:]:
+        mangled = re.search(r"'(\w+)'", entry).group(1)
+        found = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)E)?", mangled)
+        name = found.group(1) + (f"<{found.group(2)}>" if found.group(2) else "")
+        regs = int(re.search(r"Used (\d+) registers", entry).group(1))
+        spills = sum(int(n) for n in re.findall(r"(\d+) bytes spill", entry))
+        smem = re.search(r"(\d+) bytes smem", entry)
+        parts.append(f"{name} {regs} registers, {spills} spill bytes, "
+                     f"{int(smem.group(1)) if smem else 0} B static shared")
+    return "; ".join(parts)
+
+
 def _build_kernels(kernels) -> None:
     """Build every kernel, one nvcc per source, all started together."""
 
@@ -197,9 +233,7 @@ def _build_kernels(kernels) -> None:
               f"{' (already built)' if cached else ''}")
         log = kernels.library_path(name).with_suffix(".log")
         if log.exists():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"  ptxas: {line.strip()}")
+            print(f"  ptxas {name}: {_ptxas_summary(log.read_text())}")
         kernels.load(name)
 
 
@@ -588,9 +622,36 @@ def main() -> None:
     lattice = rng.integers(0, 4, size=(2048, 1728)).astype(np.float32)
     lattice[rng.random(lattice.shape) < 0.5] = np.inf
     ragged = rng.random((1001, 333)).astype(np.float32)  # rows % 8 != 0, W % 32 != 0
+    ragged_sparse = ragged.copy()  # row bytes % 16 != 0, few finite entries
+    ragged_sparse[rng.random(ragged.shape) < 0.97] = np.inf
+    narrow = rng.random((300, 19)).astype(np.float32)  # W < 32
+    narrow[rng.random(narrow.shape) < 0.5] = np.inf
+    one_step = rng.random((300, 128)).astype(np.float32)  # W = 128 exactly
+    one_step[rng.random(one_step.shape) < 0.8] = np.inf
+    far_end = np.full((257, 1733), np.inf, np.float32)  # exactly 20 finite, at the far end
+    far_end[:, -20:] = rng.random((257, 20))
+    tied = np.full((129, 700), np.inf, np.float32)  # 33 equal finite values and 5 smaller
+    for r in range(129):
+        cols = rng.choice(700, 38, replace=False)
+        tied[r, cols[:33]] = 0.5
+        tied[r, cols[33:]] = rng.random(5) * 0.4
+    # A matrix whose base is 4-byte but not 16-byte aligned.
+    flat = torch.as_tensor(np.concatenate([[0.0], lattice.ravel()]).astype(np.float32),
+                           device="cuda")
+    offset = flat[1:].view(lattice.shape)
+    if offset.data_ptr() % 16 != 4 or not offset.is_contiguous():
+        raise AssertionError("the offset view is not the 4-byte-aligned case")
     for what, x, ks in [("W=216, mostly +inf, all-inf rows", sparse, (1, 20, 32, 50)),
                         ("lattice ties, W=1728", lattice, (1, 20, 32, 50)),
-                        ("1001 rows x 333", ragged, (1, 20, 32, 50, 333))]:
+                        ("1001 rows x 333", ragged, (1, 20, 32, 50, 333)),
+                        ("1001 rows x 333, mostly +inf", ragged_sparse, (1, 20, 32)),
+                        ("W=19", narrow, (1, 19)),
+                        ("W=128", one_step, (20, 32)),
+                        ("exactly 20 finite entries at the far end of 1733 columns", far_end,
+                         (20, 32)),
+                        ("33 equal finite values in a row", tied, (20, 32)),
+                        ("lattice ties, W=1728, base 4 bytes off a 16-byte boundary", offset,
+                         (20, 32))]:
         x = torch.as_tensor(x, device="cuda")
         for kk in ks:
             got = pallas_row_topk(x, k=kk)
@@ -686,11 +747,15 @@ def main() -> None:
     b3_bytes_ms = 1e3 * ((a[0].numel() + a[1].numel()) * 4 + a[2].numel()
                          + a[0].shape[0] * k * 8) / HBM_BYTES_PER_S
     b3_ops_ms = 1e3 * 9 * a[0].shape[0] * n_valid_tgt / F32_FLOP_PER_S
+    b3_floor_ms = 1e3 * B3_OPERATIONS_PER_PAIR * a[0].shape[0] * n_valid_tgt / (
+        F32_FLOP_PER_S / 2)
     print(f"B3 bunny35k at the initial pose: {a[0].shape[0]} x {a[1].shape[0]} "
           f"({n_valid_tgt} valid targets), k {k}: indices and d2 bit-equal to twin in "
           f"(expansion d2, index) order; B3 {b3['ms']:.4f} ms (median of 20), twin "
           f"{b3['plain_ms']:.2f} ms (median of 3), bound {max(b3_bytes_ms, b3_ops_ms):.4f} ms "
-          f"(operations {b3_ops_ms:.4f}, bytes {b3_bytes_ms:.4f})")
+          f"(operations {b3_ops_ms:.4f}, bytes {b3_bytes_ms:.4f}), the contract's floor "
+          f"{b3_floor_ms:.4f} ms ({B3_OPERATIONS_PER_PAIR} unfused float32 operations a "
+          f"pair)")
     rng = np.random.default_rng(31)
     far_t = rng.uniform(0, 2, size=(5000, 3)) + 200.0
     far_s = far_t[rng.integers(0, 5000, 3001)] + rng.normal(scale=0.05, size=(3001, 3))
@@ -700,6 +765,9 @@ def main() -> None:
     few[[5, 170, 900, 4000]] = True
     holes = rng.random(5000) > 0.1
     zeroed = np.where(rng.random((3001, 1)) > 0.1, far_s - center, 0.0)
+    same_t = rng.random((600, 3))  # 33 targets at one place, scattered over the indices
+    same_t[rng.choice(600, 33, replace=False)] = same_t[0]
+    same_s = same_t[0] + rng.normal(scale=0.02, size=(50, 3))
     for what, s_np, t_np, v_np, ks in [
         ("targets 200 m from the origin, centred; invalid targets, zeroed source rows",
          zeroed, far_t - center, holes, (1, 20, 32, 40)),
@@ -709,6 +777,11 @@ def main() -> None:
          (1, 20, 40)),
         ("no valid target", rng.random((100, 3)), rng.random((64, 3)), np.zeros(64, bool),
          (20, 40)),
+        ("17 targets (fewer than a warp, and than k)", rng.random((45, 3)), rng.random((17, 3)),
+         np.ones(17, bool), (5, 20, 40)),
+        ("1,300 targets (a ragged last tile), 1,003 rows (a ragged last block)",
+         rng.random((1003, 3)), rng.random((1300, 3)), rng.random(1300) > 0.05, (1, 20, 32)),
+        ("33 targets at one distance", same_s, same_t, np.ones(600, bool), (20, 32)),
     ]:
         e = (torch.as_tensor(s_np.astype(np.float32), device="cuda"),
              torch.as_tensor(t_np.astype(np.float32), device="cuda"),
@@ -754,15 +827,18 @@ def main() -> None:
     kk = kreg.params.max_neighbours
     got = npal.brute_knn(*ka, k=kk)
     torch.cuda.synchronize()
-    rows = slice(60_000, 64_096)  # one 4,096-row slice against the twin
-    want = npal._brute_knn_plain(ka[0][rows], ka[1], ka[2], k=kk)
-    _equal_bits([("indices", got[0][rows], want[0]), ("d2", got[1][rows], want[1])],
-                "B3 kitti131k rows 60,000-64,095")
+    for r0 in range(0, ka[0].shape[0], 4096):  # every row, a slice at a time
+        rows = slice(r0, r0 + 4096)
+        want = npal._brute_knn_plain(ka[0][rows], ka[1], ka[2], k=kk)
+        _equal_bits([("indices", got[0][rows], want[0]), ("d2", got[1][rows], want[1])],
+                    f"B3 kitti131k rows {r0}-{r0 + 4095}")
     kitti_b3_ms = _cuda_ms(lambda: npal.brute_knn(*ka, k=kk), reps=3)
+    kitti_pairs = ka[0].shape[0] * int(ka[2].sum())
     print(f"B3 kitti131k, one search {ka[0].shape[0]} x {ka[1].shape[0]}, k {kk}: "
           f"{kitti_b3_ms:.3f} ms (median of 3), bound "
-          f"{1e3 * 9 * ka[0].shape[0] * int(ka[2].sum()) / F32_FLOP_PER_S:.3f} ms (operations); "
-          f"rows 60,000-64,095 bit-equal to twin")
+          f"{1e3 * 9 * kitti_pairs / F32_FLOP_PER_S:.3f} ms (operations), the contract's floor "
+          f"{1e3 * B3_OPERATIONS_PER_PAIR * kitti_pairs / (F32_FLOP_PER_S / 2):.3f} ms; "
+          f"every row bit-equal to twin")
 
     # -- 12. a forced fallback: pool -> grid ----------------------------------
     pts = np.stack(np.meshgrid(np.arange(32), np.arange(32), np.arange(8)), -1).reshape(-1, 3)

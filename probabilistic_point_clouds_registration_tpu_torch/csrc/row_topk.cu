@@ -10,58 +10,199 @@
 // a stable sort of the row gives, so kernel and twin agree in every slot;
 // callers still mask by isfinite(value).
 //
-// Design. Keys are 64 bits, float_bits(d2) << 32 | column: the bits of a
-// non-negative float (and of +inf) order like the float, so key order is
-// exactly (value, column) order and all keys of a row differ. One warp per
-// row, 8 rows per block.
-//   k <= 32: each lane holds one slot of a running ascending top 32. The row
-//   is walked in 32-column chunks (coalesced 128-byte reads). A chunk with no
-//   key below the running k-th key cannot change slots [0, k) and is skipped
-//   by a warp vote; otherwise its keys are sorted descending across the warp
-//   (bitonic network through __shfl_xor_sync), the lane-wise minimum with the
-//   running list is the bitonic sequence of the 32 smallest of both, and a
-//   5-stage clean-up sorts it ascending again. Columns past w carry the key
-//   ~0, which never enters.
+// What bounds it on the card: bytes. Each entry is read once (4 bytes) and
+// k * 8 bytes per row are written, so the kernel is as fast as it keeps
+// device memory busy. A warp that reads 128 bytes, votes, and only then
+// reads the next 128 has too few bytes in flight to do that, and sorting
+// every group of 32 that holds one survivor keeps the warp from its loads.
+//
+// Design (keys and the merge are topk_merge.cuh's). One warp per row, 8 rows
+// per block.
+//   k <= 32: the row is read as float4, kLoads independent 16-byte loads per
+//   lane started before any test (kLoads * 512 bytes per warp in flight). The
+//   row's 0-3 columns before the first 16-byte boundary and its last 0-3
+//   columns go through 4-byte loads, so any row length and any
+//   4-byte-aligned base are taken. An entry is tested
+//   as a float: the columns of a batch of loads lie above every column in
+//   the running list, so "beats the k-th key" is `bits(value) < bits(k-th
+//   value)`, one unsigned compare (valid for values >= +0 and +inf), and
+//   keys are built only for survivors. Until the list holds k keys the
+//   threshold is +inf's bits, so only finite entries ever pass; a row that
+//   ends with fewer than k finite entries then takes its lowest +inf
+//   columns in a short second pass over its first columns (most entries are
+//   +inf, so that is one or two 128-byte reads), which gives an all-+inf
+//   row its lowest columns without sorting any +inf. A batch with no
+//   survivor costs its loads, 4 * kLoads compares and one vote. Survivors
+//   are few and scattered: each lane counts its own, a warp scan gives it
+//   its place in the row's staging buffer, and it appends them without
+//   further votes; the buffer is merged when it fills (see topk_merge.cuh).
+//   Where a batch holds more survivors than the buffer has room for (a
+//   row's first batch), one vote per load slot compacts them and merges on
+//   the way. All tests of a batch use the threshold from before the batch:
+//   a merge inside it brings in columns above some the batch has yet to
+//   test, for which the float compare is no longer the key compare (there
+//   `<=` against the fresh threshold is still safe, and is used).
 //   k > 32: round r takes the smallest key above round r-1's (one pass over
 //   the row per round, a warp minimum), as the window-select kernel does.
-//
-// What bounds it on the card: bytes. Each entry is read once (4 bytes) and
-// k * 8 bytes per row are written; the network runs only for chunks that can
-// still contribute, which after the first chunks of a row are few (most
-// entries of the grid search's matrix are +inf).
 
 #include <cuda_runtime.h>
 
+#include "topk_merge.cuh"
+
 namespace {
 
+using topk::kFull;
+using topk::kNone;
+
 constexpr int kRowsPerBlock = 8;  // one warp per row
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned long long kNone = ~0ull;
+constexpr int kLoads = 4;         // float4 loads per lane in flight (k <= 32)
+constexpr unsigned kInf = 0x7f800000u;    // bits of +inf: the threshold until k finite keys are held
+constexpr unsigned kNever = 0xffffffffu;  // bits that pass no threshold
 
-__device__ __forceinline__ unsigned long long make_key(float v, int col) {
-  return ((unsigned long long)__float_as_uint(v) << 32) | (unsigned)col;
-}
+struct Merged {
+  unsigned long long run;  // the lane's slot of the merged list
+  unsigned thr;            // bits of the k-th key's value (+inf: not yet k keys)
+};
 
-// Compare-exchange with the partner at XOR distance `stride`: the lane keeps
-// the smaller key when `keep_min`, else the larger.
-__device__ __forceinline__ unsigned long long cmp_swap(unsigned long long v, int stride,
-                                                       bool keep_min) {
-  const unsigned long long o = __shfl_xor_sync(kFull, v, stride);
-  return keep_min ? (o < v ? o : v) : (o > v ? o : v);
-}
-
-__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(kFull, v, off);
-    v = o < v ? o : v;
-  }
-  return v;
+// Merge a row's staging buffer into its running list. Not inlined: the
+// kernel calls it from every unrolled test, and the network is long.
+__device__ __noinline__ Merged merge_row(unsigned long long run, const unsigned long long* stage,
+                                         int count, int k) {
+  const int lane = threadIdx.x & 31;
+  run = topk::merge_staged(run, stage, count, lane);
+  const unsigned long long kth = __shfl_sync(kFull, run, k - 1);
+  return {run, kth == kNone ? kInf : topk::key_bits(kth)};
 }
 
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 row_topk_kernel(const float* __restrict__ d2, float* __restrict__ out_v,
                 int* __restrict__ out_i, int n, int w, int k) {
+  __shared__ unsigned long long stage_s[kRowsPerBlock][topk::kStage];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long row = (long long)blockIdx.x * kRowsPerBlock + warp;
+  if (row >= n) return;  // the whole warp leaves together
+  const float* x = d2 + row * w;
+  unsigned long long* stage = stage_s[warp];
+
+  unsigned long long run = kNone;  // running top 32, ascending across the lanes
+  unsigned thr = kInf;             // bits of the k-th key's value
+  int count = 0;                   // keys in the staging buffer
+
+  auto flush = [&]() {
+    const Merged merged = merge_row(run, stage, count, k);
+    run = merged.run;
+    thr = merged.thr;
+    count = 0;
+  };
+  // One entry per lane (`live`: it passed the batch's threshold).
+  auto take = [&](bool live, unsigned bits, int col) {
+    const unsigned ballot = __ballot_sync(kFull, live);
+    if (ballot == 0) return;
+    if (count + __popc(ballot) > topk::kStage) flush();
+    count = topk::stage_append(stage, count, ballot, live, topk::make_key(bits, col), lane);
+    if (count == topk::kStage) flush();
+  };
+  // 32 columns from `c0` through 4-byte loads, columns >= `end` left out.
+  auto take_scalar = [&](int c0, int end) {
+    const int col = c0 + lane;
+    const unsigned bits = col < end ? __float_as_uint(x[col]) : kNever;
+    take(bits < thr, bits, col);
+  };
+
+  // Head: the 0-3 columns before the first 16-byte boundary.
+  const int head = min(w, (int)((16u - (unsigned)((size_t)x & 15u)) & 15u) >> 2);
+  if (head > 0) take_scalar(0, head);
+
+  // Body: float4 batches.
+  const uint4* x4 = reinterpret_cast<const uint4*>(x + head);
+  const int n4 = (w - head) >> 2;
+  for (int v0 = 0; v0 < n4; v0 += 32 * kLoads) {
+    uint4 q[kLoads];
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int v = v0 + u * 32 + lane;
+      q[u] = v < n4 ? __ldg(x4 + v) : make_uint4(kNever, kNever, kNever, kNever);
+    }
+    const unsigned t = thr;  // the whole batch is tested against this
+    bool any = false;
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      any |= (q[u].x < t) | (q[u].y < t) | (q[u].z < t) | (q[u].w < t);
+    }
+    if (!__any_sync(kFull, any)) continue;
+    // Survivors are few and scattered: each lane counts its own, a warp
+    // scan gives it its place in the staging buffer, and it appends them
+    // without further votes.
+    int mine = 0;
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      mine += (q[u].x < t) + (q[u].y < t) + (q[u].z < t) + (q[u].w < t);
+    }
+    int upto = mine;  // inclusive scan over the lanes
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int below = __shfl_up_sync(kFull, upto, off);
+      if (lane >= off) upto += below;
+    }
+    const int total = __shfl_sync(kFull, upto, 31);
+    if (count + total <= topk::kStage) {
+      int at = count + upto - mine;
+#pragma unroll
+      for (int u = 0; u < kLoads; ++u) {
+        const int col = head + ((v0 + u * 32 + lane) << 2);
+        if (q[u].x < t) stage[at++] = topk::make_key(q[u].x, col);
+        if (q[u].y < t) stage[at++] = topk::make_key(q[u].y, col + 1);
+        if (q[u].z < t) stage[at++] = topk::make_key(q[u].z, col + 2);
+        if (q[u].w < t) stage[at++] = topk::make_key(q[u].w, col + 3);
+      }
+      count += total;
+      if (count == topk::kStage) flush();
+      continue;
+    }
+    // More than the buffer has room for (the row's first batches): one vote
+    // per load slot, merging as the buffer fills.
+#pragma unroll
+    for (int u = 0; u < kLoads; ++u) {
+      const int col = head + ((v0 + u * 32 + lane) << 2);
+      // `<= thr`: a merge inside the batch tightens the test, ties kept.
+      take(q[u].x < t && q[u].x <= thr, q[u].x, col);
+      take(q[u].y < t && q[u].y <= thr, q[u].y, col + 1);
+      take(q[u].z < t && q[u].z <= thr, q[u].z, col + 2);
+      take(q[u].w < t && q[u].w <= thr, q[u].w, col + 3);
+    }
+  }
+
+  // Tail: the last 0-3 columns.
+  const int tail = head + (n4 << 2);
+  if (tail < w) take_scalar(tail, w);
+  if (count > 0) flush();
+
+  float* ov = out_v + row * k;
+  int* oi = out_i + row * k;
+  if (lane < k && run != kNone) {
+    ov[lane] = __uint_as_float(topk::key_bits(run));
+    oi[lane] = topk::key_index(run);
+  }
+  // Fewer than k finite entries: the slots behind them take the row's
+  // lowest +inf columns, in column order (k <= w, so there are enough).
+  int filled = __popc(__ballot_sync(kFull, run != kNone));
+  for (int c0 = 0; filled < k && c0 < w; c0 += 32) {
+    const int col = c0 + lane;
+    const bool masked = col < w && __float_as_uint(x[col]) == kInf;
+    const unsigned ballot = __ballot_sync(kFull, masked);
+    const int slot = filled + __popc(ballot & ((1u << lane) - 1u));
+    if (masked && slot < k) {
+      ov[slot] = __uint_as_float(kInf);
+      oi[slot] = col;
+    }
+    filled += __popc(ballot);
+  }
+}
+
+__global__ void __launch_bounds__(kRowsPerBlock * 32)
+row_topk_rounds_kernel(const float* __restrict__ d2, float* __restrict__ out_v,
+                       int* __restrict__ out_i, int n, int w, int k) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   if (row >= n) return;  // the whole warp leaves together
@@ -69,65 +210,38 @@ row_topk_kernel(const float* __restrict__ d2, float* __restrict__ out_v,
   float* ov = out_v + row * k;
   int* oi = out_i + row * k;
 
-  if (k <= 32) {
-    // Running top 32, ascending across the lanes; ~0 marks a slot not filled.
-    unsigned long long run = kNone;
-    for (int base = 0; base < w; base += 32) {
-      const int j = base + lane;
-      unsigned long long key = j < w ? make_key(x[j], j) : kNone;
-      const unsigned long long kth = __shfl_sync(kFull, run, k - 1);
-      if (!__any_sync(kFull, key < kth)) continue;
-      // 1. bitonic sort of the chunk, descending at the last merge.
-#pragma unroll
-      for (int size = 2; size <= 32; size <<= 1) {
-        const bool desc = (lane & size) == 0;  // run direction at this size
-#pragma unroll
-        for (int stride = size >> 1; stride > 0; stride >>= 1) {
-          const bool lower = (lane & stride) == 0;
-          key = cmp_swap(key, stride, lower != desc);
-        }
-      }
-      // 2. lane-wise min of ascending `run` and the descending chunk.
-      run = key < run ? key : run;
-      // 3. bitonic clean-up, ascending.
-#pragma unroll
-      for (int stride = 16; stride > 0; stride >>= 1) {
-        run = cmp_swap(run, stride, (lane & stride) == 0);
-      }
-    }
-    if (lane < k) {  // k <= w: slot `lane` holds a real key
-      ov[lane] = __uint_as_float((unsigned)(run >> 32));
-      oi[lane] = (int)(run & 0xffffffffull);
-    }
-    return;
-  }
-
   unsigned long long floor_key = 0;  // smallest key the round may take
   for (int r = 0; r < k; ++r) {
     unsigned long long best = kNone;
     for (int j = lane; j < w; j += 32) {
-      const unsigned long long key = make_key(x[j], j);
+      const unsigned long long key = topk::make_key(__float_as_uint(x[j]), j);
       if (key >= floor_key && key < best) best = key;
     }
-    best = warp_min(best);
+    best = topk::warp_min(best);
     floor_key = best + 1;
     if (lane == 0) {
-      ov[r] = __uint_as_float((unsigned)(best >> 32));
-      oi[r] = (int)(best & 0xffffffffull);
+      ov[r] = __uint_as_float(topk::key_bits(best));
+      oi[r] = topk::key_index(best);
     }
   }
 }
 
 }  // namespace
 
-// Launch over the n rows of the row-major (n, w) matrix `d2` on `stream`;
-// returns the launch's cudaError_t (0 = launched). Outputs are (n, k)
-// row-major. The caller guarantees 1 <= k <= w.
+// Launch over the n rows of the row-major (n, w) matrix `d2` (any 4-byte
+// aligned base) on `stream`; returns the launch's cudaError_t (0 =
+// launched). Outputs are (n, k) row-major. The caller guarantees
+// 1 <= k <= w.
 extern "C" int row_topk_launch(const float* d2, float* out_v, int* out_i, int n,
                                int w, int k, void* stream) {
   if (n == 0) return 0;
   const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
-  row_topk_kernel<<<blocks, kRowsPerBlock * 32, 0, (cudaStream_t)stream>>>(
-      d2, out_v, out_i, n, w, k);
+  if (k <= 32) {
+    row_topk_kernel<<<blocks, kRowsPerBlock * 32, 0, (cudaStream_t)stream>>>(
+        d2, out_v, out_i, n, w, k);
+  } else {
+    row_topk_rounds_kernel<<<blocks, kRowsPerBlock * 32, 0, (cudaStream_t)stream>>>(
+        d2, out_v, out_i, n, w, k);
+  }
   return (int)cudaGetLastError();
 }

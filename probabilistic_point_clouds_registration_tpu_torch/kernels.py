@@ -2,10 +2,11 @@
 
 Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point that
 launches on the stream it is given and returns the ``cudaError_t`` of the
-launch. At first use the file is compiled with ``nvcc`` for Hopper
-(``sm_90a``) into ``build/kernels/`` beside the package, under a name keyed
-by a hash of the source and the flags, and loaded with ctypes. Nothing is
-compiled when this module is imported.
+launch; what kernels share is in ``csrc/*.cuh``. At first use the file is
+compiled with ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` beside
+the package, under a name keyed by a hash of the source, of every header it
+could include and of the flags, and loaded with ctypes. Nothing is compiled
+when this module is imported.
 """
 from __future__ import annotations
 
@@ -38,7 +39,7 @@ _ENTRY_POINTS = {
         [_P] * 10 + [_I] * 3 + [ctypes.c_float, _P],
     ),
     "row_topk": ("row_topk_launch", [_P] * 3 + [_I] * 3 + [_P]),
-    "brute_knn": ("brute_knn_launch", [_P] * 5 + [_I] * 3 + [_P]),
+    "brute_knn": ("brute_knn_launch", [_P] * 4 + [_I] + [_P] * 2 + [_I] * 3 + [_P]),
 }
 
 _loaded: dict[str, ctypes._CFuncPtr] = {}
@@ -56,12 +57,13 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the build of ``csrc/<name>.cu`` lives (hash of source + flags)."""
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where the build of ``csrc/<name>.cu`` lives: keyed by a hash of the
+    source, of every ``csrc/*.cuh`` (a header the source may include) and of
+    the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))]:
+        digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -76,7 +78,7 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")],
+        [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(_CSRC / f"{name}.cu")],
         capture_output=True,
         text=True,
     )

@@ -71,6 +71,25 @@ def _brute_knn_plain(src, tgt, target_valid, *, k: int,
     return torch.cat(idx_all), torch.cat(d_all)
 
 
+# Targets per tile of the kernel's packed target (csrc/brute_knn.cu, kTile).
+PACK_TILE = 512
+
+
+def _pack_targets_plain(tgt, target_valid, *, tile: int = PACK_TILE):
+    """Plain PyTorch version of the kernel's target packing: (M', 4) float32
+    rows (x, y, z, t2) with t2 = (x*x + y*y) + z*z, an invalid target as
+    (0, 0, 0, +inf), padded with such rows to M' = M rounded up to a whole
+    ``tile``. A +inf t2 makes the expansion distance +inf, which no row
+    takes."""
+    m = tgt.shape[0]
+    x, y, z = (tgt[:, c] for c in range(3))
+    t2 = x * x + y * y + z * z
+    rows = torch.cat([tgt, t2[:, None]], dim=1)
+    empty = torch.tensor([0.0, 0.0, 0.0, math.inf], dtype=tgt.dtype, device=tgt.device)
+    rows = torch.where(target_valid[:, None], rows, empty)
+    return torch.cat([rows, empty.expand(-m % tile, 4)])
+
+
 def brute_knn(src, tgt, target_valid, *, k: int, target_tile: int = 2048):
     """Per row of ``src`` (N, 3) float32, the k valid targets of ``tgt``
     (M, 3) float32 of smallest expansion distance, in ascending (distance,
@@ -83,8 +102,10 @@ def brute_knn(src, tgt, target_valid, *, k: int, target_tile: int = 2048):
 
     A CPU tensor goes to the plain twin, which streams the target in tiles
     of ``target_tile`` points (the kernel needs no tile size); a CUDA tensor
-    launches the CUDA kernel (csrc/brute_knn.cu) or raises.
-    ``brute_knn.launches`` counts kernel launches.
+    launches the CUDA kernel (csrc/brute_knn.cu: one call packs the target
+    into scratch allocated here, see :func:`_pack_targets_plain`, and runs
+    the search) or raises. ``brute_knn.launches`` counts those calls, one
+    per search.
     """
     if k < 1:
         raise ValueError(f"brute_knn needs k >= 1, got {k}")
@@ -111,11 +132,14 @@ def brute_knn(src, tgt, target_valid, *, k: int, target_tile: int = 2048):
     out_d = torch.empty((n, k), dtype=torch.float32, device=dev)
     if n == 0:
         return out_i, out_d
+    # Scratch for the pre-kernel's packed target, whole tiles.
+    packed = torch.empty((m + -m % PACK_TILE, 4), dtype=torch.float32, device=dev)
     launch = kernels.load("brute_knn")
     with torch.cuda.device(dev):
         err = launch(
-            src.data_ptr(), tgt.data_ptr(), valid.data_ptr(), out_i.data_ptr(),
-            out_d.data_ptr(), n, m, k, torch.cuda.current_stream(dev).cuda_stream,
+            src.data_ptr(), tgt.data_ptr(), valid.data_ptr(), packed.data_ptr(),
+            packed.shape[0], out_i.data_ptr(), out_d.data_ptr(), n, m, k,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"brute_knn kernel launch failed: CUDA error {err}")

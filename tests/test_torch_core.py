@@ -7,8 +7,15 @@ Tolerances: the SE(3) tensor functions are compared in float64 at 1e-12
 helpers and the integer size helpers must be equal; the weights are held to
 the reference's golden vectors at 1e-6 (test/ProbabilisticWeightsTest.cc)
 and to the JAX function at 1e-12 in float64.
+
+Also here: how `kernels.py` keys a build (source, shared headers and
+flags), and that the GPU scripts' text handling (the ptxas summary of the
+smoke run, the patched kernel copies of the kernel benchmark) still fits
+the sources.
 """
+import importlib.util
 import math
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -186,3 +193,90 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert "ProbabilisticRegistration" in proc.stdout
+
+
+def _script(path):
+    """A script of the repository, imported as a module (its ``main`` is
+    not run; it imports torch's CUDA side only there)."""
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("edited", ["topk_merge.cuh", "row_topk.cu", "new_header.cuh"])
+def test_library_path_follows_sources_and_headers(edited, tmp_path, monkeypatch):
+    """A build is keyed by its source, by every csrc/*.cuh (a header the
+    source may include) and by the flags: an edit to a shared header
+    rebuilds the kernels that include it."""
+    from probabilistic_point_clouds_registration_tpu_torch import kernels
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels._CSRC, csrc)
+    monkeypatch.setattr(kernels, "_CSRC", csrc)
+    names = ("row_topk", "brute_knn", "select_windows", "select_bitonic")
+    before = {name: kernels.library_path(name) for name in names}
+    assert before == {name: kernels.library_path(name) for name in names}
+    assert len(set(before.values())) == len(names)
+    target = csrc / edited
+    target.write_text((target.read_text() if target.exists() else "") + "\n// edited\n")
+    after = {name: kernels.library_path(name) for name in names}
+    changed = {name for name in names if after[name] != before[name]}
+    assert changed == ({"row_topk"} if edited.endswith(".cu") else set(names))
+    monkeypatch.setattr(kernels, "NVCC_FLAGS", kernels.NVCC_FLAGS + ("-lineinfo",))
+    assert all(kernels.library_path(name) != after[name] for name in names)
+
+
+def test_shared_header_is_included_by_the_two_streaming_selections_only():
+    from probabilistic_point_clouds_registration_tpu_torch import kernels
+
+    including = {p.name for p in kernels._CSRC.glob("*.cu")
+                 if '#include "topk_merge.cuh"' in p.read_text()}
+    assert including == {"row_topk.cu", "brute_knn.cu"}
+
+
+def test_smoke_run_summarises_the_ptxas_log():
+    log = (
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN45_GLOBAL__N__20c56b78_12_brute_knn_cu_d699097c16brute_knn_kernelILi4EEEvPKfiiii'"
+        " for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN45_brute_knn_kernelILi4EEEvPKfiiii\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 59 registers, used 1 barriers\n"
+        "ptxas info    : Function properties for _ZN43_INTERNAL_9merge_rowEPyPKyii\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Compiling entry function "
+        "'_ZN44_GLOBAL__N__4a0a61b0_11_row_topk_cu_f0b2c7d115row_topk_kernelEPKfPfPiiii'"
+        " for 'sm_90a'\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 56 registers, used 0 barriers, 2048 bytes smem\n"
+    )
+    assert _script(REPO / "chip_smoke.py")._ptxas_summary(log) == (
+        "brute_knn_kernel<4> 59 registers, 0 spill bytes, 0 B static shared; "
+        "row_topk_kernel 56 registers, 12 spill bytes, 2048 B static shared")
+
+
+@pytest.mark.parametrize("name", ["row_topk", "brute_knn"])
+def test_kernel_benchmark_patches_fit_the_sources(name, tmp_path):
+    """tools/bench_select_kernels.py times copies of a kernel's source with
+    a tuning constant changed or a merge counter added; the text it patches
+    must still be in the sources."""
+    from probabilistic_point_clouds_registration_tpu_torch import kernels
+
+    bench = _script(REPO / "tools" / "bench_select_kernels.py")
+    source = (kernels._CSRC / f"{name}.cu").read_text()
+    for knobs in bench.VARIANTS[name]:
+        cu = bench._variant_copy(kernels._CSRC, name, knobs, tmp_path / "variant")
+        text = cu.read_text()
+        assert text != source or all(
+            f"constexpr int {c} = {v};" in source for c, v in knobs.items())
+        assert all(f"constexpr int {c} = {v};" in text for c, v in knobs.items())
+        assert (tmp_path / "variant" / "topk_merge.cuh").exists()
+    if name == "brute_knn":
+        text = bench._no_candidates_copy(kernels._CSRC, tmp_path / "none").read_text()
+        assert "thr[r] = -CUDART_INF_F;" in text and "in_range ? CUDART_INF_F" not in text
+    cu = bench._counting_copy(kernels._CSRC, name, tmp_path / "count")
+    assert "merge_count" in cu.read_text()
+    header = (tmp_path / "count" / "topk_merge.cuh").read_text()
+    assert header.count("atomicAdd(&g_merges") == 1 and header.count("atomicAdd(&g_staged") == 1

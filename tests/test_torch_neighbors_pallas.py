@@ -14,6 +14,12 @@ matmul expansion, which ``jnp.dot`` may round differently from the port's
 fixed elementwise order: a row whose sets differ is allowed only if the two
 candidates that swapped differ by <= 4 ulp in the port's expansion distance.
 On these fixtures no row differs (asserted), so that allowance is unused.
+
+The CUDA kernel's selection scheme (filter by the distance before the clamp
+against a stale threshold, stage up to 32 survivors per row, merge when the
+buffer fills) is modelled in numpy below and held equal to the twin in every
+slot, and the plain version of the kernel's target packing is held against
+the distances the twin computes.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -173,3 +179,124 @@ def test_brute_knn_checks_its_inputs():
     before = t_np.brute_knn.launches
     t_np.brute_knn(src, tgt, tv, k=2)
     assert t_np.brute_knn.launches == before  # the CPU twin launches nothing
+
+
+def _raw_expansion(src, tgt):
+    """The expansion distance before the clamp, in the twin's order."""
+    sx, sy, sz = (src[:, c:c + 1] for c in range(3))
+    tx, ty, tz = (tgt[None, :, c] for c in range(3))
+    cross = sx * tx + sy * ty + sz * tz
+    return (sx * sx + sy * sy + sz * sz) + (tx * tx + ty * ty + tz * tz) - 2.0 * cross
+
+
+def _staged_knn(raw_row, valid, k, *, stage=32):
+    """numpy model of the CUDA kernel's scheme for one source row. Targets
+    arrive in groups of 32 in ascending index. A target survives when its
+    distance before the clamp is below the threshold, the clamped distance
+    of the k-th key at the last merge (stale, so only looser; +inf at the
+    start; an invalid target's +inf never survives). Survivors are staged as
+    keys (bits of the clamped distance, index); the buffer of ``stage`` keys
+    is merged into the running top 32 when a group does not fit (the group
+    is then tested again against the fresh threshold) and when it is full."""
+    m = raw_row.size
+    raw = np.where(valid, raw_row, np.float32(np.inf))
+    run, staged, thr = [], [], np.float32(np.inf)
+
+    def merge():
+        nonlocal run, staged, thr
+        run = sorted(run + staged)[:32]
+        staged = []
+        thr = (np.array([run[k - 1][0]], np.uint32).view(np.float32)[0]
+               if len(run) >= k else np.float32(np.inf))
+
+    for c0 in range(0, m, 32):
+        group = range(c0, min(m, c0 + 32))
+        live = [j for j in group if raw[j] < thr]
+        if len(staged) + len(live) > stage:
+            merge()
+            live = [j for j in group if raw[j] < thr]
+        staged += [(int(np.maximum(raw[j], np.float32(0)).view(np.uint32)), j) for j in live]
+        if len(staged) == stage:
+            merge()
+    merge()
+    picked = run[:k] + [(0x7F800000, m)] * (k - len(run[:k]))
+    return (np.array([j for _, j in picked], np.int32),
+            np.array([b for b, _ in picked], np.uint32).view(np.float32))
+
+
+def _knn_case(case):
+    rng = np.random.default_rng(17)
+    if case == "random":
+        tgt = rng.uniform(-1, 1, size=(300, 3))
+        src = tgt[rng.integers(0, 300, 12)] + rng.normal(scale=0.05, size=(12, 3))
+        valid = rng.random(300) > 0.1
+    elif case == "lattice":  # exact ties: every lattice point twice
+        pts = np.stack(np.meshgrid(*[np.arange(5)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        tgt = np.concatenate([pts, pts]) - 2.0
+        src = pts[::11] - 2.0
+        valid = np.ones(len(tgt), bool)
+    elif case == "few_valid":
+        tgt = rng.uniform(-1, 1, size=(200, 3))
+        src = rng.uniform(-1, 1, size=(8, 3))
+        valid = np.zeros(200, bool)
+        valid[[3, 64, 65, 199]] = True
+    else:  # no valid target: every distance is +inf
+        tgt = rng.uniform(-1, 1, size=(70, 3))
+        src = rng.uniform(-1, 1, size=(5, 3))
+        valid = np.zeros(70, bool)
+    return src.astype(np.float32), tgt.astype(np.float32), valid
+
+
+@pytest.mark.parametrize("k", [1, 20, 32])
+@pytest.mark.parametrize("case", ["random", "lattice", "few_valid", "all_inf"])
+def test_staged_selection_model_equals_twin(case, k):
+    src, tgt, valid = _knn_case(case)
+    want_i, want_d = t_np._brute_knn_plain(
+        torch.as_tensor(src), torch.as_tensor(tgt), torch.as_tensor(valid), k=k,
+        target_tile=64)
+    raw = _raw_expansion(torch.as_tensor(src), torch.as_tensor(tgt)).numpy()
+    for r in range(src.shape[0]):
+        got_i, got_d = _staged_knn(raw[r], valid, k)
+        np.testing.assert_array_equal(got_i, want_i[r].numpy())
+        np.testing.assert_array_equal(got_d.view(np.uint32), want_d[r].numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("m", [17, 512, 1300])
+def test_target_packing_matches_the_twins_distances(m):
+    """(x, y, z, t2 | +inf), padded to whole tiles: the expansion distance
+    built from a packed row is bit for bit the twin's, masked targets and
+    the padding come out +inf."""
+    rng = np.random.default_rng(m)
+    tgt = torch.as_tensor(rng.uniform(-3, 3, size=(m, 3)).astype(np.float32))
+    src = torch.as_tensor(rng.uniform(-3, 3, size=(9, 3)).astype(np.float32))
+    valid = torch.as_tensor(rng.random(m) > 0.2)
+    packed = t_np._pack_targets_plain(tgt, valid)
+    assert packed.dtype == torch.float32 and packed.shape[1] == 4
+    assert packed.shape[0] % t_np.PACK_TILE == 0
+    assert 0 <= packed.shape[0] - m < t_np.PACK_TILE
+    empty = torch.tensor([0.0, 0.0, 0.0, np.inf])
+    assert (packed[m:] == empty).all() and (packed[:m][~valid] == empty).all()
+    np.testing.assert_array_equal(packed[:m, :3][valid].numpy(), tgt[valid].numpy())
+    sx, sy, sz = (src[:, c:c + 1] for c in range(3))
+    px, py, pz, t2 = (packed[None, :, c] for c in range(4))
+    from_packed = torch.clamp_min(
+        (sx * sx + sy * sy + sz * sz) + t2 - 2.0 * (sx * px + sy * py + sz * pz), 0.0)
+    want = torch.where(valid[None, :], t_np._expansion_d2(src, tgt), np.inf)
+    np.testing.assert_array_equal(from_packed[:, :m].numpy().view(np.uint32),
+                                  want.numpy().view(np.uint32))
+    assert torch.isinf(from_packed[:, m:]).all()
+
+
+def test_brute_knn_rejects_what_the_kernel_does_not_take():
+    """Neither the CPU nor a CUDA device: no twin, no kernel, no fallback;
+    and every operand must lie where ``src`` lies."""
+    src = torch.zeros((4, 3), device="meta")
+    tgt = torch.zeros((8, 3), device="meta")
+    tv = torch.ones(8, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        t_np.brute_knn(src, tgt, tv, k=2)
+    with pytest.raises(ValueError, match="is on"):
+        t_np.brute_knn(torch.zeros((4, 3)), tgt, tv, k=2)
+    with pytest.raises(ValueError, match="bool"):
+        t_np.brute_knn(torch.zeros((4, 3)), torch.zeros((8, 3)),
+                       torch.ones(8, dtype=torch.uint8), k=2)
