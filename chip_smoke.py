@@ -10,12 +10,17 @@ parallel) and then, raising on the first failure:
 1. prints the card, the build seconds and, per kernel function, ptxas's
    registers, spill bytes and static shared memory;
 2. the dense engine: holds B1 (``select_windows``) bit for bit against its
-   plain twin at the dense bench shapes and on edge cases, and registers
-   the 35k ``bunny_like`` bench pair with ``search_impl="fused"``;
+   plain twin at the dense bench shapes (timed beside its bound there) and
+   on edge cases: random segments, lattice ties, windows of 384, 5,120 and
+   202 lanes (the last takes no 16-byte load), widths off a multiple of 4,
+   and what the one-pass walk could get wrong (``_walker_cases``), at k 1,
+   12, 20, 32 and, through the rounds kernel, 40; then registers the 35k
+   ``bunny_like`` bench pair with ``search_impl="fused"``;
 3. holds B4 (``select_bitonic``) and B1 bit for bit against the twin (and
    so against each other) on every class pass of the pooled search of
    both pairs (35k bunny, 131k ``kitti_like``) at their initial pose, and
-   B4 on edge cases; times B4, the twin and B1 on the same inputs;
+   B4 on the same edge cases at 128, 512, 2,048 and 4,096 lanes; times B4,
+   the twin and B1 on the same inputs, each pass beside its own bound;
 4. holds ``fused_pool_search`` (its kernel classes on B4) slot for slot
    against the same search with every class pass on the twin, on both
    pairs;
@@ -199,6 +204,90 @@ def _edge_case(torch, fg, *, seed, lattice, n_lanes, n_win=48, n_groups=512):
         step_rows=torch.as_tensor(step_rows, device=dev),
         width_lut=torch.as_tensor(width.astype(np.int32), device=dev),
     )
+
+
+def _walker_cases(pack_row_meta, *, n_lanes: int, seed: int, odd_widths: bool = False,
+                  n_groups: int = 36) -> dict:
+    """numpy inputs of a window select that its one-pass walk could get
+    wrong, with the radius they are made for. Six windows, taken in turn
+    by the groups:
+
+    0. every lane live, about a third of them within the radius: more than
+       32 survivors in the first 128-lane step;
+    1. a lattice of 27 points repeated over the lanes, the sources on its
+       centre: runs of equal distances longer than the staging buffer;
+    2. live lanes far outside the radius but for 12 near ones, all in the
+       last 16 lanes of the segment [48, 208) (or [48, n_lanes - 16) in a
+       narrower window): exactly k = 12 live lanes at a segment's end;
+    3. random points, a tenth of the lanes dead, a union short of the
+       window;
+    4. every lane within the radius: 128 survivors a step;
+    5. the dead window.
+
+    Each group's 8 rows take, in turn: the whole window; the segment above,
+    whose bounds are multiples of 16 and not of 128; an empty segment;
+    an invalid row; the whole window; the first and the last 16 lanes; the
+    segment again. ``odd_widths`` sets three windows' widths off a multiple
+    of 4 (and one below its union), which the twin honours lane by lane.
+    """
+    rng = np.random.default_rng(seed)
+    n_win = 6
+    seg_lo, seg_hi = 48, min(208, n_lanes - 16)
+    xyz = np.full((n_win, 3, n_lanes), 1e30, np.float32)
+    idx = np.full((n_win, n_lanes), -1, np.int32)
+    ids = rng.permutation(1 << 20)[: n_win * n_lanes].reshape(n_win, n_lanes).astype(np.int32)
+    xyz[0], idx[0] = rng.uniform(-0.6, 0.6, (3, n_lanes)), ids[0]
+    xyz[1], idx[1] = 0.25 * rng.integers(-1, 2, (3, n_lanes)), ids[1]
+    xyz[2], idx[2] = rng.uniform(50, 60, (3, n_lanes)), ids[2]
+    xyz[2][:, seg_hi - 14: seg_hi - 2] = rng.uniform(-0.2, 0.2, (3, 12))
+    union = n_lanes - 40
+    live = rng.random(union) >= 0.1
+    xyz[3][:, :union][:, live] = rng.uniform(-0.8, 0.8, (3, int(live.sum())))
+    idx[3][:union][live] = ids[3][:union][live]
+    xyz[4], idx[4] = rng.uniform(-0.25, 0.25, (3, n_lanes)), ids[4]
+    width = np.array([n_lanes] * 5 + [0], np.int32)
+    width[3] = min(-(-union // 128) * 128, n_lanes)
+    if odd_widths:
+        width[0], width[1], width[3] = n_lanes - 3, n_lanes - 2, 50
+    step_rows = (np.arange(n_groups) % n_win).astype(np.int32)
+    rows = n_groups * 8
+    src = rng.uniform(-0.1, 0.1, (rows, 3)).astype(np.float32)
+    on_lattice = np.repeat(step_rows == 1, 8)
+    src[on_lattice] = 0.0
+    src[on_lattice & (np.arange(rows) % 2 == 1), 0] = 0.125
+    turn = np.arange(rows) % 8
+    lo = np.select([turn == 1, turn == 2, turn == 6, turn == 7],
+                   [seg_lo, 32, (n_lanes - 1) // 16 * 16, seg_lo], 0)
+    hi = np.select([turn == 1, turn == 2, turn == 5, turn == 7],
+                   [seg_hi, 32, 16, seg_hi], n_lanes)
+    meta = pack_row_meta(turn != 3, lo, hi).astype(np.float32)
+    return dict(padded=np.concatenate([src, meta[:, None]], axis=1), cand_xyz=xyz,
+                cand_idx=idx, step_rows=step_rows, width_lut=width, radius=0.5)
+
+
+def _hold_walker_cases(torch, fg, select, what: str, lanes, ks) -> None:
+    """Hold ``select`` bit for bit against the twin on ``_walker_cases`` at
+    every window width of ``lanes`` and every k of ``ks``, with widths on
+    and off a multiple of 4."""
+    for n_lanes in lanes:
+        for odd_widths in (False, True):
+            case = _walker_cases(fg.pack_row_meta, n_lanes=n_lanes, seed=n_lanes,
+                                 odd_widths=odd_widths)
+            radius = case.pop("radius")
+            a = {key: torch.as_tensor(value, device="cuda") for key, value in case.items()}
+            found = []
+            for kk in ks:
+                kp = 32 if kk <= 32 else -(-kk // 128) * 128
+                got = select(**a, k=kk, radius=radius)
+                want = fg._select_windows_plain(**a, k=kk, kp=kp,
+                                                r2=float(np.float32(radius) ** 2))
+                torch.cuda.synchronize()
+                _bit_equal(got, want, f"{what} walker cases, {n_lanes} lanes, k={kk}, "
+                                      f"odd widths {odd_widths}")
+                found.append(int((got[1] >= 0).sum()))
+            print(f"{what} walker cases, {n_lanes} lanes, widths "
+                  f"{'off' if odd_widths else 'on'} a multiple of 4: k in {tuple(ks)}, "
+                  f"live slots {found}, bit-equal")
 
 
 def _ptxas_summary(log: str) -> str:
@@ -399,8 +488,10 @@ def main() -> None:
           f"lanes {pre.n_lanes}, k {k}, live slots {int((out[1] >= 0).sum())}: bit-equal to twin")
     b1_ms = _cuda_ms(lambda: fg.select_windows(*args, k=k, radius=params.radius))
     twin_ms = _cuda_ms(lambda: fg._select_windows_plain(*args, k=k, kp=32, r2=r2))
+    dense_bytes_ms, dense_ops_ms = _select_bound_ms(fg, torch, args)
     print(f"B1 dense bench shapes (median of 20, CUDA events): kernel {b1_ms:.4f} ms, "
-          f"twin {twin_ms:.4f} ms")
+          f"twin {twin_ms:.4f} ms, bound {max(dense_bytes_ms, dense_ops_ms):.4f} ms "
+          f"(bytes {dense_bytes_ms:.4f}, operations {dense_ops_ms:.4f})")
     for name, case in [
         ("segments, invalid rows, dead groups", dict(seed=1, lattice=False, n_lanes=384, k=20)),
         ("lattice ties, k=1", dict(seed=2, lattice=True, n_lanes=256, k=1)),
@@ -415,6 +506,8 @@ def main() -> None:
         torch.cuda.synchronize()
         _bit_equal(got, want, f"B1 edge case '{name}'")
         print(f"B1 edge case '{name}': {int((got[1] >= 0).sum())} live slots, bit-equal")
+    _hold_walker_cases(torch, fg, fg.select_windows, "B1", lanes=(384, 5120, 202),
+                       ks=(1, 12, 20, 32, 40))
 
     zero_counts()
     reg = port.ProbabilisticRegistration(src, tgt, params, device="cuda")
@@ -476,7 +569,9 @@ def main() -> None:
             select_ops_ms += ops_ms
             print(f"{what}: {int((twin[1] >= 0).sum())} live slots, B4 and B1 bit-equal to "
                   f"twin; B4 {ms['select_bitonic']:.4f} ms, twin {ms['plain']:.4f} ms, "
-                  f"B1 {ms['select_windows']:.4f} ms (median of 20, CUDA events)")
+                  f"B1 {ms['select_windows']:.4f} ms (median of 20, CUDA events), bound "
+                  f"{max(bytes_ms, ops_ms):.4f} ms (bytes {bytes_ms:.4f}, operations "
+                  f"{ops_ms:.4f})")
     for name, case in [
         ("segments, invalid rows, dead groups, 128 lanes",
          dict(seed=11, lattice=False, n_lanes=128, k=20)),
@@ -496,6 +591,8 @@ def main() -> None:
         torch.cuda.synchronize()
         _bit_equal(got, want, f"B4 edge case '{name}'")
         print(f"B4 edge case '{name}': {int((got[1] >= 0).sum())} live slots, bit-equal")
+    _hold_walker_cases(torch, fg, select_bitonic, "B4", lanes=(128, 512, 2048),
+                       ks=(1, 12, 20, 32))
 
     # -- 4. the pooled search against the same search on the twin ---------
     for name, reg in regs.items():

@@ -7,56 +7,57 @@
 //   group window; a lane is live when its target id is >= 0, the row is
 //   valid, d2 <= r2 and lo <= lane < hi (the row-meta segment); the k
 //   smallest live lanes come out in ascending (d2, lane) order as distance,
-//   target id and x/y/z. Empty slots hold 3e38 / -1 / 0.
+//   target id and x/y/z. Empty slots hold 3e38 / -1 / 0. Any window width;
+//   kp output slots a row, 32 for k <= 32.
 //
-// Design. One warp per source row, 8 warps (one group of 8 rows sharing a
-// window) per block. The kernel reads the window straight from the prepacked
-// table, cand_xyz[step_rows[g]], instead of a per-group gathered copy, and
-// scans only [0, width_lut[window]) lanes: lanes past a window's union are
-// dead by construction. Round r takes the smallest 64-bit key
+// The kernels read the window straight from the prepacked table,
+// cand_xyz[step_rows[g]], instead of a per-group gathered copy, and scan only
+// [0, width_lut[window]) lanes: lanes past a window's union are dead by
+// construction. No storage grows with the window width (dense windows may
+// exceed 4096 lanes).
+//
+// k <= 32: window_select.cuh's one-pass walk, the same code the bitonic
+// select B4 (select_bitonic.cu) runs: each lane's d2 is computed once, a lane
+// is tested by one float compare against min(r2, the k-th key's d2), the
+// survivors are merged rarely, and each row's slots are written once. That
+// header says what bounds it on the card (bytes, most of them the output) and
+// what the design does about it. The two entry points remain because the
+// port keeps the JAX package's structure: this one takes any width and is
+// the select of the dense engine and of a pooled class B4 does not take.
+//
+// k > 32: one warp per row; round r takes the smallest 64-bit key
 // (float_bits(d2) << 32 | lane) not below the previous round's key + 1 (bits
 // of a non-negative float order like the float), so the rounds emit exactly
-// the (d2, lane) order and the loop stops when no live lane is left. No
-// storage grows with the window width (dense windows may exceed 4096 lanes).
-//
-// What bounds it on the card: it recomputes every lane's d2 in each of the
-// k rounds, so its cost is k * width lane evaluations per row, each a
-// 16-byte read of the window (x, y, z, id) that the block's 8 warps share
-// through L1. That is a simple design that is right; keeping the window in
-// shared memory or selecting in one pass is work for later.
-//
-// d2 uses the round-to-nearest intrinsics so that nvcc cannot contract it
-// into FMAs: the result is then bit-equal to the plain PyTorch twin (one
-// rounded op at a time). Dead lanes carry 1e30 coordinates, whose d2
-// overflows to inf and fails the radius test.
+// the (d2, lane) order and the loop stops when no live lane is left. It
+// recomputes every lane's d2 in each of the k rounds (k passes: slow, and
+// right), as the k > 32 kernels of row_topk.cu and brute_knn.cu do.
 
 #include <cuda_runtime.h>
 
+#include "window_select.cuh"
+
 namespace {
 
-constexpr int kGroup = 8;           // source rows per group (= warps per block)
-constexpr float kEmptyD = 3e38f;    // outd of an empty slot
-constexpr unsigned long long kNone = ~0ull;
+using topk::kNone;
+using wsel::kEmptyD;
+using wsel::kGroup;
 
-__device__ __forceinline__ unsigned long long warp_min(unsigned long long v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const unsigned long long o = __shfl_xor_sync(0xffffffffu, v, off);
-    v = o < v ? o : v;
-  }
-  return v;
+__global__ void __launch_bounds__(kGroup * 32, wsel::kMinBlocksPerSM)
+select_windows_kernel(const wsel::Args a) {
+  __shared__ unsigned long long stage_s[kGroup][topk::kStage];
+  wsel::select_groups(a, stage_s[threadIdx.x >> 5]);
 }
 
 __global__ void __launch_bounds__(kGroup * 32)
-select_windows_kernel(const float* __restrict__ padded,
-                      const float* __restrict__ cand_xyz,
-                      const int* __restrict__ cand_idx,
-                      const int* __restrict__ step_rows,
-                      const int* __restrict__ width_lut,
-                      float* __restrict__ outd, int* __restrict__ outi,
-                      float* __restrict__ outx, float* __restrict__ outy,
-                      float* __restrict__ outz,
-                      int n_lanes, int k, int kp, float r2) {
+select_windows_rounds_kernel(const float* __restrict__ padded,
+                             const float* __restrict__ cand_xyz,
+                             const int* __restrict__ cand_idx,
+                             const int* __restrict__ step_rows,
+                             const int* __restrict__ width_lut,
+                             float* __restrict__ outd, int* __restrict__ outi,
+                             float* __restrict__ outx, float* __restrict__ outy,
+                             float* __restrict__ outz,
+                             int n_lanes, int k, int kp, float r2) {
   const int lane = threadIdx.x & 31;
   const long long row = (long long)blockIdx.x * kGroup + (threadIdx.x >> 5);
   const int win = step_rows[blockIdx.x];
@@ -88,23 +89,18 @@ select_windows_kernel(const float* __restrict__ padded,
       unsigned long long best = kNone;
       for (int j = lo + lane; j < end; j += 32) {
         const int id = ci[j];
-        const float dx = __fsub_rn(cx[j], sx);
-        const float dy = __fsub_rn(cy[j], sy);
-        const float dz = __fsub_rn(cz[j], sz);
-        const float d2 = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                                   __fmul_rn(dz, dz));
+        const float d2 = wsel::dist2(cx[j], cy[j], cz[j], sx, sy, sz);
         if (id >= 0 && d2 <= r2 && d2 < kEmptyD) {
-          const unsigned long long key =
-              ((unsigned long long)__float_as_uint(d2) << 32) | (unsigned)j;
+          const unsigned long long key = topk::make_key(__float_as_uint(d2), j);
           if (key >= floor_key && key < best) best = key;
         }
       }
-      best = warp_min(best);
+      best = topk::warp_min(best);
       if (best == kNone) break;
       floor_key = best + 1;
       if (lane == 0) {
-        const int j = (int)(best & 0xffffffffull);
-        od[found] = __uint_as_float((unsigned)(best >> 32));
+        const int j = topk::key_index(best);
+        od[found] = __uint_as_float(topk::key_bits(best));
         oi[found] = ci[j];
         ox[found] = cx[j];
         oy[found] = cy[j];
@@ -124,7 +120,8 @@ select_windows_kernel(const float* __restrict__ padded,
 }  // namespace
 
 // Launch over n_groups groups of 8 rows on `stream`; returns the launch's
-// cudaError_t (0 = launched). Outputs are (n_groups * 8, kp) row-major.
+// cudaError_t (0 = launched). Outputs are (n_groups * 8, kp) row-major; for
+// k <= 32, kp is 32 and the outputs are 16-byte aligned (checked).
 extern "C" int select_windows_launch(const float* padded, const float* cand_xyz,
                                      const int* cand_idx, const int* step_rows,
                                      const int* width_lut, float* outd, int* outi,
@@ -132,8 +129,19 @@ extern "C" int select_windows_launch(const float* padded, const float* cand_xyz,
                                      int n_groups, int n_lanes, int k, int kp,
                                      float r2, void* stream) {
   if (n_groups == 0) return 0;
-  select_windows_kernel<<<n_groups, kGroup * 32, 0, (cudaStream_t)stream>>>(
-      padded, cand_xyz, cand_idx, step_rows, width_lut, outd, outi, outx, outy,
-      outz, n_lanes, k, kp, r2);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (k > wsel::kSlots) {
+    select_windows_rounds_kernel<<<n_groups, kGroup * 32, 0, st>>>(
+        padded, cand_xyz, cand_idx, step_rows, width_lut, outd, outi, outx, outy,
+        outz, n_lanes, k, kp, r2);
+    return (int)cudaGetLastError();
+  }
+  if (kp != wsel::kSlots) return (int)cudaErrorInvalidValue;
+  wsel::Args a = {padded, cand_xyz, cand_idx, step_rows, width_lut, outd, outi, outx,
+                  outy,   outz,     n_groups, n_lanes,   k,         r2,   0};
+  int blocks = 0;
+  const cudaError_t err = wsel::plan(a, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  select_windows_kernel<<<blocks, kGroup * 32, 0, st>>>(a);
   return (int)cudaGetLastError();
 }

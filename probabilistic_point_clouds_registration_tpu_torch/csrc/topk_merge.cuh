@@ -1,10 +1,11 @@
-// Warp-level running top 32 of 64-bit keys, shared by the two exact
-// selections that stream their candidates past a warp: the brute-force KNN
-// kernel (brute_knn.cu, the TPU kernel B3,
-// probabilistic_point_clouds_registration_tpu/ops/neighbors_pallas.py::_kernel)
-// and the row top-k kernel (row_topk.cu, the TPU kernel B2,
-// probabilistic_point_clouds_registration_tpu/ops/select_pallas.py::_select_kernel).
-// Nothing else includes this file.
+// Warp-level running top 32 of 64-bit keys, shared by the exact selections
+// that stream their candidates past a warp: the brute-force KNN kernel
+// (brute_knn.cu, the TPU kernel B3,
+// probabilistic_point_clouds_registration_tpu/ops/neighbors_pallas.py::_kernel),
+// the row top-k kernel (row_topk.cu, the TPU kernel B2,
+// probabilistic_point_clouds_registration_tpu/ops/select_pallas.py::_select_kernel)
+// and, through window_select.cuh, the two window selects (select_windows.cu
+// and select_bitonic.cu, the TPU kernels B1 and B4).
 //
 // A key is float_bits(value) << 32 | index. The bits of a non-negative float
 // (and of +inf) order like the float, so key order is exactly (value, index)
@@ -110,6 +111,39 @@ __device__ __forceinline__ unsigned long long merge_staged(unsigned long long ru
   const unsigned long long key = lane < count ? stage[lane] : kNone;
   __syncwarp();
   return merge_chunk(run, key, lane);
+}
+
+// The same merge for callers whose buffers are rarely full and whose rows
+// mostly merge once (the window selects): the buffer is sorted by rank, not
+// by the network. Each lane counts the staged keys below its own (keys
+// differ, so ranks do), the keys change places in shared memory, and the
+// lanes read them back in order. `run_empty` (the same for the whole warp):
+// nothing was merged yet, and the sorted buffer is the list. Otherwise the
+// buffer is read back descending and the bitonic merge (lane-wise minimum,
+// 5 compare-exchange stages) joins it to the list. A handful of staged keys
+// costs a handful of shared-memory reads a lane and no shuffle, where the
+// network takes 15 dependent stages whatever the count.
+__device__ __forceinline__ unsigned long long merge_staged_by_rank(unsigned long long run,
+                                                                   bool run_empty,
+                                                                   unsigned long long* stage,
+                                                                   int count, int lane) {
+  __syncwarp();
+  const unsigned long long mine = lane < count ? stage[lane] : kNone;
+  int rank = 0;
+  for (int i = 0; i < count; ++i) rank += stage[i] < mine ? 1 : 0;
+  __syncwarp();
+  if (lane < count) stage[rank] = mine;
+  __syncwarp();
+  const int from = run_empty ? lane : kStage - 1 - lane;
+  const unsigned long long key = from < count ? stage[from] : kNone;
+  __syncwarp();
+  if (run_empty) return key;
+  run = key < run ? key : run;
+#pragma unroll
+  for (int stride = 16; stride > 0; stride >>= 1) {
+    run = cmp_swap(run, stride, (lane & stride) == 0);
+  }
+  return run;
 }
 
 }  // namespace topk

@@ -468,9 +468,12 @@ def select_windows(padded, cand_xyz, cand_idx, step_rows, width_lut, *,
     order; kp = 32 for k <= 32.
 
     A CPU tensor goes to the plain twin; a CUDA tensor launches the CUDA
-    kernel (csrc/select_windows.cu) or raises. ``select_windows.launches``
-    counts kernel launches.
+    kernel (csrc/select_windows.cu: for k <= 32 the one-pass walk of
+    csrc/window_select.cuh, which B4 runs too; for k > 32 a kernel of k
+    rounds) or raises. ``select_windows.launches`` counts kernel launches.
     """
+    if k < 1:
+        raise ValueError(f"select_windows needs k >= 1, got {k}")
     kp = 32 if k <= 32 else round_up(k, 128)
     r2 = float(np.float32(radius) ** 2)
     dev = padded.device
@@ -478,8 +481,6 @@ def select_windows(padded, cand_xyz, cand_idx, step_rows, width_lut, *,
         return _select_windows_plain(
             padded, cand_xyz, cand_idx, step_rows, width_lut, k=k, kp=kp, r2=r2
         )
-    if k < 1:
-        raise ValueError(f"select_windows needs k >= 1, got {k}")
     s = padded.shape[0]
     n_lanes = cand_idx.shape[1]
     outd, outi, planes = _select_outputs(

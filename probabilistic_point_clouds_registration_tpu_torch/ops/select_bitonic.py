@@ -4,10 +4,13 @@
 Same contract as the window-select kernel B1 (``fused_grid.select_windows``):
 per source row, the k smallest squared distances within ``radius`` among
 the live lanes of its group's window, ascending, ties broken by lane, i.e.
-ascending (d2, lane); slots [k, 32) empty (3e38, -1, 0). It is computed
-differently: a 32-lane bitonic sort of each chunk of the window merged into
-a running top 32 (csrc/select_bitonic.cu). It takes pow2 window widths and
-k <= 32 only; ``fused_pool.class_select`` sends the pooled search's kernel
+ascending (d2, lane); slots [k, 32) empty (3e38, -1, 0). On the TPU it is
+computed differently from B1, by a bitonic sort of each 32-lane chunk merged
+into a running top 32. On the card both entry points run one walk
+(csrc/window_select.cuh): a filter against the k-th distance, a staging
+buffer, and a merge into the running top 32 that ends on the bitonic merge
+network. This one keeps the TPU kernel's limits, pow2 window widths and
+k <= 32; ``fused_pool.class_select`` sends the pooled search's kernel
 classes here where they fit, and to B1 otherwise.
 """
 from __future__ import annotations

@@ -235,6 +235,22 @@ def test_shared_header_is_included_by_the_two_streaming_selections_only():
     assert including == {"row_topk.cu", "brute_knn.cu"}
 
 
+def test_window_walk_header_is_shared_by_the_two_window_selects():
+    """B1 and B4 run one walk (csrc/window_select.cuh, which takes its keys
+    and merges from topk_merge.cuh); each keeps its own entry point."""
+    from probabilistic_point_clouds_registration_tpu_torch import kernels
+
+    sources = {p.name: p.read_text() for p in kernels._CSRC.glob("*.cu")}
+    including = {name for name, text in sources.items()
+                 if '#include "window_select.cuh"' in text}
+    assert including == {"select_windows.cu", "select_bitonic.cu"}
+    assert '#include "topk_merge.cuh"' in (kernels._CSRC / "window_select.cuh").read_text()
+    for name in including:
+        assert "wsel::select_groups(" in sources[name]
+        assert f'extern "C" int {name[:-3]}_launch(' in sources[name]
+    assert "select_windows_rounds_kernel" in sources["select_windows.cu"]  # k > 32
+
+
 def test_smoke_run_summarises_the_ptxas_log():
     log = (
         "ptxas info    : 0 bytes gmem\n"
@@ -257,7 +273,7 @@ def test_smoke_run_summarises_the_ptxas_log():
         "row_topk_kernel 56 registers, 12 spill bytes, 2048 B static shared")
 
 
-@pytest.mark.parametrize("name", ["row_topk", "brute_knn"])
+@pytest.mark.parametrize("name", ["row_topk", "brute_knn", "select_windows", "select_bitonic"])
 def test_kernel_benchmark_patches_fit_the_sources(name, tmp_path):
     """tools/bench_select_kernels.py times copies of a kernel's source with
     a tuning constant changed or a merge counter added; the text it patches
@@ -265,18 +281,54 @@ def test_kernel_benchmark_patches_fit_the_sources(name, tmp_path):
     from probabilistic_point_clouds_registration_tpu_torch import kernels
 
     bench = _script(REPO / "tools" / "bench_select_kernels.py")
-    source = (kernels._CSRC / f"{name}.cu").read_text()
+
+    def with_headers(cu):  # a constant is the source's own or a header's
+        return cu.read_text() + "".join(h.read_text() for h in sorted(cu.parent.glob("*.cuh")))
+
+    source = with_headers(kernels._CSRC / f"{name}.cu")
     for knobs in bench.VARIANTS[name]:
         cu = bench._variant_copy(kernels._CSRC, name, knobs, tmp_path / "variant")
-        text = cu.read_text()
+        text = with_headers(cu)
         assert text != source or all(
             f"constexpr int {c} = {v};" in source for c, v in knobs.items())
         assert all(f"constexpr int {c} = {v};" in text for c, v in knobs.items())
         assert (tmp_path / "variant" / "topk_merge.cuh").exists()
     if name == "brute_knn":
-        text = bench._no_candidates_copy(kernels._CSRC, tmp_path / "none").read_text()
+        text = bench._no_candidates_copy(kernels._CSRC, name, tmp_path / "none").read_text()
         assert "thr[r] = -CUDART_INF_F;" in text and "in_range ? CUDART_INF_F" not in text
+    if name.startswith("select_"):
+        original = (kernels._CSRC / "window_select.cuh").read_text()
+        bench._no_candidates_copy(kernels._CSRC, name, tmp_path / "none")
+        assert "thr0 = a.r2 >= below_empty ? -1.0f" in (
+            tmp_path / "none" / "window_select.cuh").read_text()
+        bench._writes_only_copy(kernels._CSRC, name, tmp_path / "writes")
+        assert "if (width <= a.n_lanes) {" in (
+            tmp_path / "writes" / "window_select.cuh").read_text()
+        cu = bench._phase_copy(kernels._CSRC, name, tmp_path / "phases")
+        assert "phase_count" in cu.read_text()
+        timed = (tmp_path / "phases" / "window_select.cuh").read_text()
+        assert timed.count("phase_add(") == 3 and timed.count("clock64()") == 3
+        assert original == (kernels._CSRC / "window_select.cuh").read_text()
     cu = bench._counting_copy(kernels._CSRC, name, tmp_path / "count")
     assert "merge_count" in cu.read_text()
     header = (tmp_path / "count" / "topk_merge.cuh").read_text()
-    assert header.count("atomicAdd(&g_merges") == 1 and header.count("atomicAdd(&g_staged") == 1
+    # One count in each of the header's two merges, one where keys are staged.
+    assert header.count("atomicAdd(&g_merges") == 2 and header.count("atomicAdd(&g_staged") == 1
+
+
+def test_kernel_benchmark_counts_an_older_tree(tmp_path):
+    """The benchmark's other tree may predate the shared headers: a bitonic
+    select with its network in the kernel is counted there, and a window
+    select that takes k rounds has no merge to count."""
+    bench = _script(REPO / "tools" / "bench_select_kernels.py")
+    old = tmp_path / "csrc"
+    old.mkdir()
+    (old / "topk_merge.cuh").write_text("// a header the selects do not include\n")
+    (old / "select_windows.cu").write_text("namespace {\n}  // k rounds, no network\n")
+    (old / "select_bitonic.cu").write_text(
+        "namespace {\n"
+        "      if (!__any_sync(kFull, live && key < worst)) continue;\n"
+        "}\n")
+    assert bench._counting_copy(old, "select_windows", tmp_path / "b1") is None
+    counted = bench._counting_copy(old, "select_bitonic", tmp_path / "b4").read_text()
+    assert counted.count("atomicAdd(&g_merges") == 1 and "merge_count" in counted

@@ -10,6 +10,10 @@ ops/fused_grid.py, ops/fused_pool.py pieces) with the JAX package's.
 * ``fused_grid_search`` end to end, including the overflow flag on
   scattered sources: masks and indices equal, distances and points at
   rtol 3e-7 for the same reason.
+* The CUDA kernel's one-pass walk (csrc/window_select.cuh) cannot run here;
+  a numpy model of its scheme (a stale threshold, one vote per load slot,
+  a 32-key staging buffer, a merge when it is full) is held bit for bit
+  against the twin on the inputs ``chip_smoke.py`` holds the kernel on.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +28,13 @@ from probabilistic_point_clouds_registration_tpu.ops import fused_grid as j_fg
 from probabilistic_point_clouds_registration_tpu.ops import grid as j_grid
 from probabilistic_point_clouds_registration_tpu_torch.ops import fused_grid as t_fg
 from probabilistic_point_clouds_registration_tpu_torch.ops import grid as t_grid
+from test_torch_core import REPO, _script
+
+
+def _smoke_script():
+    """``chip_smoke.py`` as a module (its ``main`` is not run): the edge
+    cases of the select kernels are made there, once, with numpy."""
+    return _script(REPO / "chip_smoke.py")
 
 
 def _make_pair(n_src=1500, n_tgt=2048, seed=0):
@@ -206,6 +217,122 @@ def test_select_twin_matches_pallas_kernel(lattice, k, radius):
     if lattice and k > 1:  # the fixture really has ties at selected slots
         d = got_d.numpy()
         assert np.any((d[:, 1:] == d[:, :-1]) & live[:, 1:])
+
+
+@pytest.mark.parametrize("k", [1, 12, 20, 32, 40])
+@pytest.mark.parametrize("n_lanes", [256, 384])
+def test_select_twin_matches_pallas_kernel_on_walker_cases(n_lanes, k):
+    """The inputs a one-pass walk could get wrong (segments off a multiple
+    of 128, exactly k live lanes at a segment's end, more than 32 survivors
+    in a step, runs of equal distances, an empty segment beside full ones):
+    the twin against the JAX package's kernel in interpret mode. k = 40 takes
+    128 output slots."""
+    case = _smoke_script()._walker_cases(t_fg.pack_row_meta, n_lanes=n_lanes, seed=n_lanes,
+                                         n_groups=48)
+    radius = case.pop("radius")
+    want_d, want_i, want_p = _jax_select(
+        case["padded"], case["cand_xyz"], case["cand_idx"], case["width_lut"],
+        case["step_rows"], k, radius)
+    before = t_fg.select_windows.launches
+    got_d, got_i, got_p = t_fg.select_windows(
+        **{key: torch.as_tensor(value) for key, value in case.items()}, k=k, radius=radius)
+    assert t_fg.select_windows.launches == before  # CPU tensors: the twin, no launch
+    assert got_i.shape == (case["padded"].shape[0], 32 if k <= 32 else 128)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    for g, w in zip(got_p, want_p):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=3e-7, atol=0)
+    found = (got_i.numpy() >= 0).sum(axis=1).reshape(-1, 8)  # per group and row turn
+    window = case["step_rows"]
+    assert np.all(found[window == 2][:, [0, 1, 4, 7]] == min(k, 12))  # the 12 near lanes
+    assert not found[:, 2].any() and not found[:, 3].any()  # empty segment, invalid row
+    assert np.all(found[window == 4][:, 0] == k) and not found[window == 5].any()
+    d = got_d.numpy()[np.repeat(window == 1, 8)]
+    if k > 1:  # the lattice rows' slots really hold ties
+        assert np.any(d[:, 1:k] == d[:, : k - 1])
+
+
+def _walk_row_model(d2, ids, lo, end, k, r2, *, step=128, stage=32):
+    """numpy model of the CUDA walk for one row (csrc/window_select.cuh).
+    Keys are (d2 bits, lane). A step covers ``step`` lanes; thread t holds
+    lanes base + 4 t + c, c = 0..3, and the warp votes once per c on
+    ``d2 <= thr and id >= 0`` with the threshold of the step's start. A
+    slot's survivors are appended to the staging buffer; where they do not
+    fit, the buffer is merged first and they are tested again against the
+    fresh threshold. The threshold is the k-th key's d2 once k are held,
+    min(r2, the largest float below 3e38) before. Returns the k best keys
+    and the number of merges."""
+    bits = d2.view(np.uint32)
+    below_empty = np.nextafter(np.float32(3e38), np.float32(0))
+    thr = below_empty if r2 >= below_empty else np.float32(r2)
+    run, staged, merges = [], [], 0
+
+    def merge():
+        nonlocal run, staged, thr, merges
+        run = sorted(run + staged)[:32]
+        staged = []
+        merges += 1
+        if len(run) >= k:
+            thr = np.array(run[k - 1][0], np.uint32).view(np.float32)
+
+    for base in range(lo, end, step):
+        at_start = thr
+        for c in range(4):
+            lanes = [j for j in range(base + c, min(end, base + step), 4)
+                     if d2[j] <= at_start and ids[j] >= 0]
+            if not lanes:
+                continue
+            if len(staged) + len(lanes) > stage:
+                merge()
+                lanes = [j for j in lanes if d2[j] <= thr]
+            staged += [(int(bits[j]), j) for j in lanes]
+            if len(staged) == stage:
+                merge()
+    if staged:
+        merge()
+    return run[:k], merges
+
+
+@pytest.mark.parametrize("k", [1, 12, 20, 32])
+@pytest.mark.parametrize("n_lanes,odd_widths", [(128, False), (384, False), (384, True),
+                                                (202, True), (1024, False)])
+def test_walk_model_equals_twin(n_lanes, odd_widths, k):
+    case = _smoke_script()._walker_cases(t_fg.pack_row_meta, n_lanes=n_lanes, seed=n_lanes,
+                                         odd_widths=odd_widths, n_groups=12)
+    radius = case.pop("radius")
+    r2 = float(np.float32(radius) ** 2)
+    want_d, want_i, _ = t_fg.select_windows(
+        **{key: torch.as_tensor(value) for key, value in case.items()}, k=k, radius=radius)
+    want_d, want_i = want_d.numpy(), want_i.numpy()
+    padded = torch.as_tensor(case["padded"])
+    valid, lo, hi = (x.numpy()[:, 0] for x in t_fg._unpack_row_meta(padded[:, 3:4]))
+    most_merges = 0
+    for row in range(padded.shape[0]):
+        win = case["step_rows"][row // 8]
+        xyz = torch.as_tensor(case["cand_xyz"][win])
+        dx, dy, dz = (xyz[a] - padded[row, a] for a in range(3))
+        d2 = (dx * dx + dy * dy + dz * dz).numpy()  # the twin's rounding
+        end = min(int(case["width_lut"][win]), int(hi[row]), n_lanes)
+        keys, merges = ([], 0) if not valid[row] or lo[row] >= end else _walk_row_model(
+            d2, case["cand_idx"][win], int(lo[row]), end, k, r2)
+        most_merges = max(most_merges, merges)
+        got_bits = np.array([b for b, _ in keys], np.uint32)
+        got_ids = np.array([case["cand_idx"][win][j] for _, j in keys], np.int32)
+        np.testing.assert_array_equal(got_bits, want_d[row, : len(keys)].view(np.uint32))
+        np.testing.assert_array_equal(got_ids, want_i[row, : len(keys)])
+        assert np.all(want_i[row, len(keys):] == -1)
+    assert most_merges > 1  # some row filled its staging buffer
+
+
+def test_select_windows_rejects_k_below_one():
+    padded, xyz, idx, width, step_rows = _windows(0, False)
+    before = t_fg.select_windows.launches
+    with pytest.raises(ValueError, match="k >= 1"):
+        t_fg.select_windows(
+            torch.as_tensor(padded), torch.as_tensor(xyz), torch.as_tensor(idx),
+            torch.as_tensor(step_rows), torch.as_tensor(width), k=0, radius=0.9,
+        )
+    assert t_fg.select_windows.launches == before
 
 
 def test_select_twin_on_cpu_counts_no_launch():

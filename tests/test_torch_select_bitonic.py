@@ -6,7 +6,10 @@ tests/test_select_bitonic.py's cases (128 and 512 lanes, with and without
 segments, k 20 and 32, exact distance ties, one all-dead block). Ids and
 points must be equal; distances at rtol 3e-7, because XLA may contract the
 d2 expression into FMAs (tests/test_fused_grid.py). The CUDA kernel is held
-bit for bit against the same twin on the card by ``chip_smoke.py``.
+bit for bit against the same twin on the card by ``chip_smoke.py``, on these
+cases and on the ones made by its ``_walker_cases``, which go through the JAX
+kernel here too (tests/test_torch_fused_grid.py holds a numpy model of the
+kernel's walk against the twin on them).
 """
 import numpy as np
 import pytest
@@ -16,7 +19,9 @@ from probabilistic_point_clouds_registration_tpu.ops.select_bitonic import (
     run_select_bitonic,
 )
 from probabilistic_point_clouds_registration_tpu_torch.ops import select_bitonic as t_sb
+from probabilistic_point_clouds_registration_tpu_torch.ops.fused_grid import pack_row_meta
 from test_select_bitonic import _block_fixture
+from test_torch_fused_grid import _smoke_script
 
 
 def _port_inputs(padded, win_xyz, win_idx, w_blk, bg):
@@ -60,6 +65,38 @@ def test_twin_matches_pallas_bitonic_kernel(n_lanes, with_segments, k):
     np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=3e-7, atol=0)
     live = got_i.numpy() >= 0
     assert live.any() and not live[-bg * 8:].any()  # the dead block found nothing
+
+
+@pytest.mark.parametrize("k", [1, 12, 20, 32])
+@pytest.mark.parametrize("n_lanes", [128, 512])
+def test_twin_matches_pallas_bitonic_kernel_on_walker_cases(n_lanes, k):
+    """The inputs a one-pass walk could get wrong (segments off a multiple
+    of 128, exactly k live lanes at a segment's end, more than 32 survivors
+    in a step, runs of equal distances, an empty segment beside full ones)
+    through the twin and the JAX package's bitonic kernel in interpret mode."""
+    bg = 2
+    case = _smoke_script()._walker_cases(pack_row_meta, n_lanes=n_lanes, seed=n_lanes)
+    radius = case.pop("radius")
+    step_rows, width = case["step_rows"], case["width_lut"]
+    union = (case["cand_idx"] >= 0).sum(axis=1).astype(np.int32)
+    want_d, want_i, want_p = run_select_bitonic(
+        case["padded"], case["cand_xyz"][step_rows], case["cand_idx"][step_rows],
+        width[step_rows].reshape(-1, bg).max(axis=1),
+        union[step_rows].reshape(-1, bg).max(axis=1),
+        k=k, n_lanes=n_lanes, radius=radius, block_groups=bg, interpret=True,
+        return_points=True,
+    )
+    before = t_sb.select_bitonic.launches
+    got_d, got_i, got_p = t_sb.select_bitonic(
+        **{key: torch.as_tensor(value) for key, value in case.items()}, k=k, radius=radius)
+    assert t_sb.select_bitonic.launches == before  # CPU tensors: the twin, no launch
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    for g, w in zip(got_p, want_p):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), rtol=3e-7, atol=0)
+    found = (got_i.numpy() >= 0).sum(axis=1).reshape(-1, 8)  # per group and row turn
+    assert np.all(found[step_rows == 2][:, [0, 1, 4, 7]] == min(k, 12))
+    assert np.all(found[step_rows == 4][:, 0] == k) and not found[:, 2:4].any()
 
 
 @pytest.mark.parametrize(
