@@ -47,9 +47,21 @@ parallel) and then, raising on the first failure:
     row of it held against the twin;
 12. a forced fallback: a pooled pair whose row budget is held at its floor
     overflows three times and ends on the grid engine, where
-    ``search_impl="grid"`` alone ends.
+    ``search_impl="grid"`` alone ends;
+13. the inner solve's CUDA graphs against the same blocks run eagerly: both
+    pairs through ``auto`` once with the LM blocks captured and replayed and
+    once eagerly, in this process; every record, the LM counts and the
+    final 4x4 bit-equal, B4's launches per pair unchanged;
+14. ``outer_chunk`` 1, 4 and 16 on the bunny pair at the reference's
+    default stopping rule (cost drop 1% for more than 5 iterations): the
+    same records, within the fixture limits, and the slots each run spent;
+15. the bunny pair with both voxel filters (a 0.02 leaf) through ``auto``,
+    against the JAX package's fixture
+    (tests/data/torch_port_bunny35k_voxel_ref.json).
 
-Each path's launch counts are set to 0 just before it and read just after.
+Phases 5, 6, 13 and 15 print whether the native host library (``native/``,
+built with g++) loaded. Each path's launch counts are set to 0 just before
+it and read just after.
 The last two lines of standard output are a JSON line with each kernel's
 launches on the paths that run it (B1: the dense registration of step 2;
 B4: the two ``auto`` registrations; B2: the two grid registrations; B3: the
@@ -63,7 +75,8 @@ B3's bound the script prints the floor its contract sets: the distance must
 be rounded operation by operation (no fused multiply-add), about 10 unfused
 float32 operations a pair, at half the data sheet's rate, which counts a
 fused multiply-add as two operations. It imports neither JAX nor the JAX
-package.
+package. A failed graph capture or a failed launch raises: nothing falls
+back to eager or to the CPU.
 """
 from __future__ import annotations
 
@@ -353,13 +366,14 @@ def _fixture_errors(reg, final, fixture: dict, what: str) -> tuple[float, float]
     return t_err, worst
 
 
-def _check_against_fixture(reg, final, fixture: dict, what: str) -> None:
+def _check_against_fixture(reg, final, fixture: dict, what: str) -> float:
     """Raise unless the run reproduces the JAX fixture: every iteration's
     correspondence count within COUNT_RTOL, the final 4x4 within
-    TRANSFORM_ATOL."""
+    TRANSFORM_ATOL. Returns the final 4x4's largest difference."""
     t_err, worst = _fixture_errors(reg, final, fixture, what)
     if t_err > TRANSFORM_ATOL or worst > COUNT_RTOL:
         raise AssertionError(f"{what}: the run disagrees with the JAX fixture")
+    return t_err
 
 
 def _select_bound_ms(fg, torch, a, kp: int = 32) -> tuple[float, float]:
@@ -411,7 +425,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     import probabilistic_point_clouds_registration_tpu_torch as port
-    from probabilistic_point_clouds_registration_tpu_torch import kernels
+    from probabilistic_point_clouds_registration_tpu_torch import kernels, native
     from probabilistic_point_clouds_registration_tpu_torch.core.types import (
         pad_cloud,
         round_up,
@@ -436,6 +450,7 @@ def main() -> None:
                          f"not from this checkout")
     fixtures = {name: json.loads((DATA / f"torch_port_{name}_ref.json").read_text())
                 for name in ("bunny35k", "kitti131k")}
+    voxel_fixture = json.loads((DATA / "torch_port_bunny35k_voxel_ref.json").read_text())
     pairs = {name: _pair(fx, synthetic) for name, fx in fixtures.items()}
     counted = {"select_windows": fg.select_windows, "select_bitonic": select_bitonic,
                "row_topk": pallas_row_topk, "brute_knn": npal.brute_knn}
@@ -632,6 +647,7 @@ def main() -> None:
 
     # -- 5./6. the main path: auto on the pooled engine, both pairs ---------
     b4_launches = 0
+    main_err = {}
     for name, fixture in fixtures.items():
         src, tgt = pairs[name]
         params = _params(port, fixture, "auto")
@@ -651,7 +667,8 @@ def main() -> None:
               f"{launches['select_windows']}, B4 launches {launches['select_bitonic']}, "
               f"budget boost {reg._pool_budget_boost}, engine_fallbacks "
               f"{reg.engine_fallbacks}, inner_cap_hits {reg.inner_cap_hits}; "
-              f"first pair in the process {first_s:.4f} s")
+              f"first pair in the process {first_s:.4f} s; native host library loaded "
+              f"{native.available()}; LM iterations per solve {reg.inner_iterations}")
         if reg.engine != "pool" or want == 0 or (
                 launches["select_bitonic"], launches["select_windows"]) != (want, 0):
             raise AssertionError(f"{name}: engine {reg.engine}, {launches['select_bitonic']} B4 "
@@ -660,7 +677,7 @@ def main() -> None:
         if name == "bunny35k" and reg._pool_budget_boost:
             raise AssertionError(f"{name}: the pooled budget escalated")
         b4_launches += launches["select_bitonic"]
-        _check_against_fixture(reg, final, fixture, f"{name} pool")
+        main_err[name] = _check_against_fixture(reg, final, fixture, f"{name} pool")
         _warm_pairs(port, torch, src, tgt, params, f"{name} pool")
         # The host plan and the pool build on their own, warm.
         tg, n_tgt = pad_cloud(np.asarray(tgt, np.float64), params.pad_multiple, pad_value=0.0)
@@ -677,6 +694,28 @@ def main() -> None:
         print(f"{name}: host grid build seconds {t1 - t0:.4f}")
         print(f"{name}: host plan seconds {t2 - t1:.4f}")
         print(f"{name}: pool build seconds {t3 - t2:.4f}")
+        # The plan's dilation on the native library and on its numpy body
+        # (the same tables), warm, best of 3.
+        counts = grid["cell_count"].astype(np.int64)
+        dilate = {}
+        for path, fn in (("native", native.dilate_cells), ("numpy", lambda *a: None)):
+            saved, native.dilate_cells = native.dilate_cells, fn
+            try:
+                runs = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    tables = fg.dilate_cells_host(grid, counts=counts)
+                    runs.append(time.perf_counter() - t0)
+            finally:
+                native.dilate_cells = saved
+            dilate[path] = (min(runs), tables)
+        same = all(np.array_equal(np.asarray(dilate["native"][1][key]),
+                                  np.asarray(dilate["numpy"][1][key]))
+                   for key in dilate["numpy"][1])
+        print(f"{name}: the plan's dilation, host seconds (best of 3): native "
+              f"{dilate['native'][0]:.4f}, numpy {dilate['numpy'][0]:.4f}; tables equal {same}")
+        if not same:
+            raise AssertionError(f"{name}: the native dilation differs from numpy")
 
     # -- 7. B2 against its twin: real first-block matrices and edge cases --
     b2 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
@@ -973,7 +1012,120 @@ def main() -> None:
             r.num_correspondences for r in grid_reg.records]:
         raise AssertionError("forced fallback: correspondence counts differ from the grid run")
 
-    # -- 13. result lines ----------------------------------------------------
+    # -- 13. the LM blocks' CUDA graphs against the same blocks eagerly ----
+    from probabilistic_point_clouds_registration_tpu_torch.models.em_lm import (
+        LM_BLOCK,
+        LMBlocks,
+    )
+
+    def record_fields(reg):
+        return [(r.num_correspondences, r.num_successful_steps, r.initial_cost, r.final_cost,
+                 r.translation.tobytes(), r.rpy_deg.tobytes()) for r in reg.records]
+
+    for name, fixture in fixtures.items():
+        src, tgt = pairs[name]
+        params = _params(port, fixture, "auto")
+        runs = {}
+        for mode in ("graphs", "eager", "graphs", "eager"):
+            zero_counts()
+            reg = port.ProbabilisticRegistration(src, tgt, params, device="cuda")
+            if mode == "eager":
+                reg._lm = LMBlocks(graphs=False, block=LM_BLOCK)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final = reg.align()
+            torch.cuda.synchronize()
+            runs[mode] = (reg, final, select_bitonic.launches, time.perf_counter() - t0)
+        (g_reg, g_final, g_b4, g_s), (e_reg, e_final, e_b4, e_s) = runs["graphs"], runs["eager"]
+        n_classes = len(g_reg._pool.class_widths)
+        if not g_reg._lm._captured or e_reg._lm._captured:
+            raise AssertionError(f"{name}: the graph run captured {len(g_reg._lm._captured)} "
+                                 f"shapes, the eager run {len(e_reg._lm._captured)}")
+        same = (np.array_equal(g_final, e_final)
+                and record_fields(g_reg) == record_fields(e_reg)
+                and g_reg.inner_iterations == e_reg.inner_iterations)
+        print(f"{name} graphs vs eager (auto, LM blocks of {LM_BLOCK}): records, LM counts and "
+              f"final 4x4 bit-equal {same}; B4 launches {g_b4} / {e_b4} (expected "
+              f"{params.n_iter * n_classes}); warm align seconds {g_s:.4f} with graphs, "
+              f"{e_s:.4f} eager; LM iterations per solve {g_reg.inner_iterations}; native host "
+              f"library loaded {native.available()}")
+        if not same:
+            raise AssertionError(f"{name}: graph replay and eager blocks disagree")
+        if g_b4 != e_b4 or g_b4 != params.n_iter * n_classes:
+            raise AssertionError(f"{name}: B4 launches {g_b4} (graphs) and {e_b4} (eager), "
+                                 f"expected {params.n_iter * n_classes}")
+
+    # -- 14. outer_chunk 1 / 4 / 16 at the default stopping rule --------------
+    src, tgt = pairs["bunny35k"]
+    defaults = port.RegistrationParams()
+    chunked = {}
+    for chunk in (1, 4, 16):
+        params = _params(port, bunny, "auto")
+        params.n_iter = defaults.n_iter
+        params.cost_drop_thresh = defaults.cost_drop_thresh
+        params.n_cost_drop_it = defaults.n_cost_drop_it
+        params.outer_chunk = chunk
+        zero_counts()
+        reg = port.ProbabilisticRegistration(src, tgt, params, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = reg.align()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        slots = select_bitonic.launches // len(reg._pool.class_widths)
+        chunked[chunk] = (reg, final)
+        print(f"bunny35k outer_chunk={chunk} (default stopping rule): {len(reg.records)} "
+              f"iterations, {slots} slots searched ({slots - len(reg.records)} stopped or "
+              f"discarded), align {seconds:.4f} s, median iteration "
+              f"{1e3 * statistics.median(reg.iteration_times):.2f} ms, engine_fallbacks "
+              f"{reg.engine_fallbacks}, inner_cap_hits {reg.inner_cap_hits}")
+        if reg.engine_fallbacks or reg.inner_cap_hits or len(reg.records) >= defaults.n_iter:
+            raise AssertionError(f"outer_chunk={chunk}: fell back, hit the inner cap or never "
+                                 f"stopped")
+    one_reg, one_final = chunked[1]
+    for chunk in (4, 16):
+        reg, final = chunked[chunk]
+        t_err = float(np.abs(final - one_final).max())
+        worst = max(abs(a.num_correspondences - b.num_correspondences) / b.num_correspondences
+                    for a, b in zip(reg.records, one_reg.records))
+        cost = max(abs(a.final_cost - b.final_cost) / abs(b.final_cost)
+                   for a, b in zip(reg.records, one_reg.records))
+        print(f"bunny35k outer_chunk={chunk} vs 1: {len(reg.records)} vs {len(one_reg.records)} "
+              f"records, final 4x4 max abs diff {t_err:.3e} (limit {TRANSFORM_ATOL}), worst "
+              f"correspondence-count diff {worst:.2e} (limit {COUNT_RTOL}), worst final-cost "
+              f"diff {cost:.2e} (float32 compositions on the card between the host's)")
+        if len(reg.records) != len(one_reg.records) or t_err > TRANSFORM_ATOL \
+                or worst > COUNT_RTOL:
+            raise AssertionError(f"outer_chunk={chunk} disagrees with outer_chunk=1")
+
+    # The fixtures come from the JAX package's one-iteration loop: both pairs
+    # at outer_chunk=1 beside the default chunks of phases 5-6.
+    for name, fixture in fixtures.items():
+        params = _params(port, fixture, "auto")
+        params.outer_chunk = 1
+        reg = port.ProbabilisticRegistration(*pairs[name], params, device="cuda")
+        t_err = _check_against_fixture(reg, reg.align(), fixture, f"{name} pool, outer_chunk=1")
+        print(f"{name} auto: final 4x4 vs JAX fixture {t_err:.3e} at outer_chunk=1, "
+              f"{main_err[name]:.3e} at outer_chunk={_params(port, fixture, 'auto').outer_chunk}")
+
+    # -- 15. the voxel-filtered pair -------------------------------------------
+    params = _params(port, voxel_fixture, "auto")
+    zero_counts()
+    t0 = time.perf_counter()
+    reg = port.ProbabilisticRegistration(src, tgt, params, device="cuda")
+    ctor_s = time.perf_counter() - t0
+    final = reg.align()
+    torch.cuda.synchronize()
+    print(f"bunny35k voxel-filtered (leaf {params.source_filter_size} / "
+          f"{params.target_filter_size}): {reg.filtered_source.shape[0]} source and "
+          f"{reg.target_cloud.shape[0]} target points, engine {reg.engine}, B4 launches "
+          f"{select_bitonic.launches}, ctor {ctor_s:.4f} s (filters included); native host "
+          f"library loaded {native.available()}")
+    if reg.engine != "pool" or select_bitonic.launches < 1:
+        raise AssertionError(f"voxel-filtered pair: engine {reg.engine}")
+    _check_against_fixture(reg, final, voxel_fixture, "bunny35k voxel pool")
+
+    # -- 16. result lines ----------------------------------------------------
     select_bound = max(select_bytes_ms, select_ops_ms)
     select_by = "bytes" if select_bytes_ms >= select_ops_ms else "operations"
     measured = {

@@ -8,10 +8,13 @@ module of the same path.
 
 Ported so far: pair registration (``ProbabilisticRegistration``,
 ``register_pair``) with Student-t or Gaussian EM weights, the moments-form
-LM solve, and every search engine: the pooled engine (``auto`` on a CUDA
-device) and the dense fused grouped engine (both through the CUDA select
-kernels), the hash-grid engine they fall back to (its k-selection through
-the CUDA row top-k kernel), brute force through the CUDA KNN kernel
+LM solve (fixed-shape steps in blocks, CUDA graphs on a card), the outer
+loop in chunks with the stopping rule on the device (``outer_chunk``),
+``trace_inner``, ``profile_dir``, the voxel filters, the native host
+library (``native/``), and every search engine: the pooled engine (``auto``
+on a CUDA device) and the dense fused grouped engine (both through the CUDA
+select kernels), the hash-grid engine they fall back to (its k-selection
+through the CUDA row top-k kernel), brute force through the CUDA KNN kernel
 (``search_impl="pallas"``) and streaming brute force. All four TPU kernels
 of the JAX package have a CUDA counterpart.
 """

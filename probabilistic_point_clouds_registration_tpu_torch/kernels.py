@@ -3,10 +3,14 @@
 Each kernel is one ``csrc/<name>.cu`` file with a plain C entry point that
 launches on the stream it is given and returns the ``cudaError_t`` of the
 launch; what kernels share is in ``csrc/*.cuh``. At first use the file is
-compiled with ``nvcc`` for Hopper (``sm_90a``) into ``build/kernels/`` beside
-the package, under a name keyed by a hash of the source, of every header it
-could include and of the flags, and loaded with ctypes. Nothing is compiled
-when this module is imported.
+compiled with ``nvcc`` for Hopper (``sm_90a``) into :func:`build_dir`, under
+a name keyed by a hash of the source, of every header it could include and
+of the flags, and loaded with ctypes. Nothing is compiled when this module
+is imported.
+
+Builds go under ``build/`` beside the package (git-ignored in a checkout),
+or under ``$PCR_TORCH_BUILD_DIR`` when that is set: an installed package
+keeps its builds out of ``site-packages`` with it.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import subprocess
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+BUILD_DIR_ENV = "PCR_TORCH_BUILD_DIR"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -45,6 +49,18 @@ _ENTRY_POINTS = {
 _loaded: dict[str, ctypes._CFuncPtr] = {}
 
 
+def build_root() -> Path:
+    """The directory the package builds into: ``$PCR_TORCH_BUILD_DIR``, or
+    ``build/`` beside the package."""
+    env = os.environ.get(BUILD_DIR_ENV)
+    return Path(env) if env else Path(__file__).resolve().parent.parent / "build"
+
+
+def build_dir() -> Path:
+    """Where the kernels' builds live."""
+    return build_root() / "kernels"
+
+
 def _nvcc() -> str:
     cuda_home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
     nvcc = cuda_home / "bin" / "nvcc"
@@ -63,7 +79,7 @@ def library_path(name: str) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [_CSRC / f"{name}.cu", *sorted(_CSRC.glob("*.cuh"))]:
         digest.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
-    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:
@@ -75,7 +91,7 @@ def build(name: str) -> Path:
     so = library_path(name)
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp), str(_CSRC / f"{name}.cu")],

@@ -18,12 +18,20 @@ nonmonotonic (Conn-Gould-Toint) step acceptance the reference enables
 E-step changes the weights the current cost is re-evaluated under the new
 weights (Ceres keeps a stale cached cost).
 
-The JAX package runs the solve in one ``lax.while_loop``; here it is a
-Python loop that reads the ``done`` flag once per LM step (one host sync per
-step). The step's arithmetic stays on the device of the inputs.
+The JAX package runs the solve in one ``lax.while_loop``. Here the loop's
+body is one fixed-shape step on device tensors, :func:`lm_step`, with no
+Python branch on a tensor value; its state freezes once ``done`` is set or
+``max_iterations`` steps have run, so that extra steps change nothing.
+:func:`em_lm_solve` runs it in blocks of ``LM_BLOCK`` steps and reads
+``done`` and the counters once a block, in one small device-to-host copy.
+On a CUDA device a registration's :class:`LMBlocks` captures the step as a
+CUDA graph once per input shape and replays it. On the CPU the step runs
+eagerly in blocks of one: a read costs nothing there, and a frozen step a
+whole E-step.
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
@@ -34,6 +42,11 @@ from ..ops.weights import update_weights
 _MAX_TRUST_REGION_RADIUS = 1e16
 _MIN_TRUST_REGION_RADIUS = 1e-32
 _MAX_CONSECUTIVE_NONMONOTONIC_STEPS = 5
+# LM steps per block on a CUDA device, between two reads of ``done``.
+# Chosen on the card among 4, 8, 16 and max_iterations (PERF.md, section
+# 6): a frozen step costs as much device time as a live one, a read costs
+# a host round trip, and the bench pairs' solves take 2-3 steps.
+LM_BLOCK = 4
 
 
 class LMConfig(NamedTuple):
@@ -52,6 +65,32 @@ class LMConfig(NamedTuple):
     max_lm_diagonal: float = 1e32
     min_relative_decrease: float = 1e-3
     use_nonmonotonic_steps: bool = True
+    # Record per-LM-iteration (cost, step_quality, radius, accepted) into
+    # LMResult.trace, the analogue of the rows of Ceres's
+    # ``summary.FullReport()`` (src/prob_point_cloud_registration.cc:108).
+    # The buffer is (max_iterations, 4) of carried state, (0, 4) when off.
+    trace: bool = False
+
+
+class LMState(NamedTuple):
+    q: torch.Tensor
+    t: torch.Tensor
+    cost: torch.Tensor
+    radius: torch.Tensor
+    decrease_factor: torch.Tensor
+    iteration: torch.Tensor
+    num_successful: torch.Tensor
+    done: torch.Tensor
+    # Nonmonotonic (Conn-Gould-Toint) bookkeeping.
+    minimum_cost: torch.Tensor
+    reference_cost: torch.Tensor
+    candidate_cost: torch.Tensor
+    acc_reference_mcc: torch.Tensor
+    acc_candidate_mcc: torch.Tensor
+    num_nonmonotonic: torch.Tensor
+    # (max_iterations, 4) rows [cost, step_quality, radius, accepted] when
+    # LMConfig.trace, else (0, 4).
+    trace: torch.Tensor
 
 
 class LMResult(NamedTuple):
@@ -59,8 +98,11 @@ class LMResult(NamedTuple):
     t: torch.Tensor
     initial_cost: torch.Tensor
     final_cost: torch.Tensor
-    num_iterations: int
-    num_successful_steps: int
+    num_iterations: torch.Tensor  # 0-d int32
+    num_successful_steps: torch.Tensor  # 0-d int32
+    # Per-LM-iteration [cost, step_quality, radius, accepted]; (0, 4) unless
+    # LMConfig.trace. Rows beyond num_iterations are zeros.
+    trace: torch.Tensor
 
 
 def _residuals(q, t, source, targets):
@@ -166,6 +208,313 @@ def _cost_change_from_moments(q, t, q_new, t_new, stats: _Moments, dtype):
     return dm - 0.5 * swd2
 
 
+def _solve_lu(a, b):
+    """x with a @ x = b for a small square ``a``: LU with partial pivoting
+    written as tensor ops, so that it needs no host sync and no library
+    call and a CUDA graph can hold it (the JAX package calls
+    ``jnp.linalg.solve``, LAPACK's getrf + getrs on the CPU).
+
+    The order of operations is LAPACK's unblocked one: pivot on the first
+    largest |a_ij| of the column, scale by the pivot's reciprocal, rank-1
+    update (the right-hand side rides along as the last column: forward
+    substitution), then column-oriented back substitution. A zero pivot
+    gives a non-finite x, which the caller rejects as the reference does.
+    """
+    n = a.shape[0]
+    m = torch.cat([a, b[:, None]], dim=1)
+    rows = torch.arange(n, device=a.device)
+    for j in range(n - 1):
+        p = torch.argmax(m[j:, j].abs()) + j
+        m = m[torch.where(rows == j, p, torch.where(rows == p, j, rows))]
+        lower = m[j + 1:, j] * (1.0 / m[j, j])
+        m = torch.cat([m[: j + 1], m[j + 1:] - lower[:, None] * m[j : j + 1]])
+    y = m[:, n]
+    x = [None] * n
+    for j in reversed(range(n)):
+        x[j] = y[j] / m[j, j]
+        y = y[:j] - x[j] * m[:j, j]
+    return torch.stack(x)
+
+
+def lm_init(source, targets, mask, q0, t0, config: LMConfig, frozen=None):
+    """The solve's state before its first step, and its initial cost (the
+    weight callback's first E-step, iteration.hpp:49).
+
+    ``frozen`` (0-d bool tensor) starts the state done: no step moves it.
+    """
+    dtype = source.dtype
+    initial_cost = _estep_moments(
+        q0, t0, source, targets, mask, config.dof, config.dimension
+    ).cost
+    zero = initial_cost.new_zeros(())
+    izero = torch.zeros((), dtype=torch.int32, device=source.device)
+    done = torch.zeros((), dtype=torch.bool, device=source.device)
+    state = LMState(
+        q=q0.to(dtype),
+        t=t0.to(dtype),
+        cost=initial_cost,
+        radius=initial_cost.new_full((), config.initial_radius),
+        decrease_factor=initial_cost.new_full((), 2.0),
+        iteration=izero,
+        num_successful=izero + 1,  # Ceres counts iteration 0
+        done=done if frozen is None else done | frozen,
+        minimum_cost=initial_cost,
+        reference_cost=initial_cost,
+        candidate_cost=initial_cost,
+        acc_reference_mcc=zero,
+        acc_candidate_mcc=zero,
+        num_nonmonotonic=izero,
+        trace=initial_cost.new_zeros(
+            (config.max_iterations if config.trace else 0, 4)
+        ),
+    )
+    return state, initial_cost
+
+
+def lm_step(s: LMState, source, targets, mask, config: LMConfig) -> LMState:
+    """One LM iteration (the body of the JAX package's ``while_loop``,
+    models/em_lm.py:319-432 there) on a fixed-shape state. A state that is
+    done, or has run ``max_iterations`` steps, comes back unchanged, bit
+    for bit: every field is ``torch.where(live, new, old)``."""
+    dtype = source.dtype
+    live = ~s.done & (s.iteration < config.max_iterations)
+    # E-step at the current iterate; everything below is O(1) in N.
+    st = _estep_moments(s.q, s.t, source, targets, mask, config.dof, config.dimension)
+    cost = st.cost
+    H, g = _normal_from_moments(s.q, st, dtype)
+
+    # Levenberg-Marquardt step: (H + diag(clamp(diag H)) / radius) d = -g,
+    # solved in float64 whatever the working dtype: in float32 the LU's
+    # rounding (in another order than LAPACK's) moved the kitti131k bench
+    # pair's final 4x4 7.7e-6 from the JAX fixture, in float64 1.9e-6
+    # (PERF.md, section 6).
+    diag = torch.clamp(torch.diagonal(H), config.min_lm_diagonal, config.max_lm_diagonal)
+    damped = H + torch.diag(diag / s.radius)
+    delta = _solve_lu(damped.double(), -g.double()).to(dtype)
+    delta_finite = torch.all(torch.isfinite(delta))
+    step_ok = delta_finite
+    delta = torch.where(step_ok, delta, 0.0)
+
+    q_new = s.q + delta[:4]
+    t_new = s.t + delta[4:]
+    cost_change_fwd = _cost_change_from_moments(s.q, s.t, q_new, t_new, st, dtype)
+    cand = cost - cost_change_fwd
+
+    # Model cost change m(0) - m(delta) = -(g.d + 0.5 d^T H d).
+    model_cost_change = -(g @ delta + 0.5 * delta @ (H @ delta))
+    step_ok = step_ok & (model_cost_change > 0) & torch.isfinite(cand)
+
+    relative_decrease = cost_change_fwd / model_cost_change
+    if config.use_nonmonotonic_steps:
+        historical = (s.reference_cost - cand) / (s.acc_reference_mcc + model_cost_change)
+        step_quality = torch.maximum(relative_decrease, historical)
+    else:
+        step_quality = relative_decrease
+    accepted = step_ok & (step_quality > config.min_relative_decrease)
+
+    # Trust-region radius update (Ceres LevenbergMarquardtStrategy).
+    boost = 1.0 / torch.clamp(1.0 - (2.0 * step_quality - 1.0) ** 3, min=1.0 / 3.0)
+    radius_acc = torch.clamp(s.radius * boost, max=_MAX_TRUST_REGION_RADIUS)
+    radius = torch.where(accepted, radius_acc, s.radius / s.decrease_factor)
+    decrease_factor = torch.where(accepted, 2.0, s.decrease_factor * 2.0)
+
+    # Nonmonotonic bookkeeping on acceptance.
+    new_cost = torch.where(accepted, cand, cost)
+    improved = new_cost < s.minimum_cost
+    minimum_cost = torch.where(accepted & improved, new_cost, s.minimum_cost)
+    num_nm = torch.where(
+        accepted, torch.where(improved, 0, s.num_nonmonotonic + 1), s.num_nonmonotonic
+    ).to(torch.int32)
+    reset = accepted & (improved | (new_cost > s.candidate_cost))
+    candidate_cost = torch.where(reset, new_cost, s.candidate_cost)
+    acc_candidate_mcc = torch.where(
+        reset, 0.0,
+        torch.where(accepted, s.acc_candidate_mcc + model_cost_change, s.acc_candidate_mcc),
+    )
+    promote = accepted & (num_nm == _MAX_CONSECUTIVE_NONMONOTONIC_STEPS)
+    reference_cost = torch.where(promote, candidate_cost, s.reference_cost)
+    acc_reference_mcc = torch.where(
+        promote, acc_candidate_mcc,
+        torch.where(accepted, s.acc_reference_mcc + model_cost_change, s.acc_reference_mcc),
+    )
+
+    # Convergence: function tolerance on accepted steps; parameter
+    # tolerance on every valid step (Ceres tests the candidate x before
+    # acceptance); a dead trust region; a non-finite cost.
+    ftol_hit = accepted & (torch.abs(cost_change_fwd) <= config.function_tolerance * cost)
+    x_norm = torch.sqrt(s.q @ s.q + s.t @ s.t)
+    xtol = config.parameter_tolerance
+    xtol_hit = delta_finite & (torch.sqrt(delta @ delta) <= xtol * (x_norm + xtol))
+    done = (
+        ftol_hit | xtol_hit | (radius < _MIN_TRUST_REGION_RADIUS) | ~torch.isfinite(new_cost)
+    )
+
+    trace = s.trace
+    if config.trace:
+        row = torch.stack([new_cost, step_quality, radius, accepted.to(dtype)])
+        slot = torch.clamp(s.iteration, max=config.max_iterations - 1).long()
+        trace = trace.index_copy(0, slot.view(1), row.view(1, 4))
+
+    new = LMState(
+        q=torch.where(accepted, q_new, s.q),
+        t=torch.where(accepted, t_new, s.t),
+        cost=new_cost,
+        radius=radius,
+        decrease_factor=decrease_factor,
+        iteration=s.iteration + 1,
+        num_successful=s.num_successful + accepted.to(torch.int32),
+        done=done,
+        minimum_cost=minimum_cost,
+        reference_cost=reference_cost,
+        candidate_cost=candidate_cost,
+        acc_reference_mcc=acc_reference_mcc,
+        acc_candidate_mcc=acc_candidate_mcc,
+        num_nonmonotonic=num_nm,
+        trace=trace,
+    )
+    return LMState(*(torch.where(live, a, b) for a, b in zip(new, s)))
+
+
+def _status(s: LMState) -> torch.Tensor:
+    """(done, iteration, num_successful) as one int32 tensor: what a block
+    read brings to the host."""
+    return torch.stack([s.done.to(torch.int32), s.iteration, s.num_successful])
+
+
+def _result(s: LMState, initial_cost) -> LMResult:
+    return LMResult(
+        q=s.q, t=s.t, initial_cost=initial_cost, final_cost=s.cost,
+        num_iterations=s.iteration, num_successful_steps=s.num_successful,
+        trace=s.trace,
+    )
+
+
+def _capture(graph, fn, pool) -> None:
+    """Capture ``fn``'s launches into ``graph`` on a side stream, as
+    ``torch.cuda.graph`` does but without its allocator flush: emptying the
+    cache at every capture would make the pair's later allocations fresh
+    ``cudaMalloc`` calls."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        graph.capture_begin(pool)
+        try:
+            fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+
+
+class _Graphs:
+    """The initial E-step and one LM step as two CUDA graphs over static
+    buffers, for one input shape and configuration. Everything that passes
+    from one replay to the next lives in the buffers, so the two graphs
+    share one memory pool; a block replays the step graph."""
+
+    def __init__(self, source, targets, mask, q0, t0, frozen, config: LMConfig):
+        self.inputs = [x.clone() for x in (source, targets, mask, q0, t0, frozen)]
+        src, tgt, msk = self.inputs[:3]
+        # Eager warm-up on a side stream (library handles, the allocator),
+        # as torch.cuda.graphs asks; its values only shape the buffers.
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            state, initial_cost = lm_init(*self.inputs[:5], config, self.inputs[5])
+            state = lm_step(state, src, tgt, msk, config)
+            self.state = LMState(*(x.clone() for x in state))
+            self.initial_cost = initial_cost.clone()
+            self.status = _status(state)
+        torch.cuda.current_stream().wait_stream(side)
+
+        def init():
+            state, initial_cost = lm_init(*self.inputs[:5], config, self.inputs[5])
+            self._store(state)
+            self.initial_cost.copy_(initial_cost)
+
+        def step():
+            self._store(lm_step(self.state, src, tgt, msk, config))
+
+        pool = torch.cuda.graph_pool_handle()
+        self.init, self.step = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+        _capture(self.init, init, pool)
+        _capture(self.step, step, pool)
+
+    def _store(self, state: LMState) -> None:
+        for buf, value in zip(self.state, state):
+            buf.copy_(value)
+        self.status.copy_(_status(state))
+
+
+class LMBlocks:
+    """Runs :func:`em_lm_solve`'s blocks of ``block`` steps, eagerly or as
+    CUDA graphs.
+
+    With ``graphs``, the first solve of each input shape and configuration
+    captures the initial E-step and the step into CUDA graphs over static
+    buffers; every solve then copies its inputs into the buffers and
+    replays them, the step ``block`` times between two reads. A capture
+    costs tens of milliseconds of host time, so it pays off for a caller
+    that solves many times (a registration keeps one per pair). A capture
+    that fails raises; nothing falls back to eager.
+
+    :meth:`solve` returns the result and the solve's last read: (done,
+    iteration, num_successful) as ints. A solve that was frozen from the
+    start reads done with iteration 0 (a live step always counts).
+    ``capture_seconds`` sums the host time spent capturing.
+    """
+
+    def __init__(self, graphs: bool, block: int = LM_BLOCK):
+        self.graphs = graphs
+        self.block = block
+        self._captured: dict = {}
+        self.capture_seconds = 0.0
+
+    @classmethod
+    def for_device(cls, device) -> "LMBlocks":
+        """For a caller that solves many times on ``device``: CUDA graphs of
+        LM_BLOCK steps on a CUDA device, eager single steps elsewhere."""
+        cuda = torch.device(device).type == "cuda"
+        return cls(graphs=cuda, block=LM_BLOCK if cuda else 1)
+
+    def solve(self, source, targets, mask, q0, t0, config: LMConfig, frozen=None):
+        """(LMResult, the last read (done, iteration, num_successful))."""
+
+        def read(status):  # one device-to-host copy
+            return tuple(status.tolist())
+
+        def finished(status):
+            return bool(status[0]) or status[1] >= config.max_iterations
+
+        if not self.graphs:
+            state, initial_cost = lm_init(source, targets, mask, q0, t0, config, frozen)
+            status = read(_status(state)) if config.max_iterations == 0 else (0, 0, 0)
+            while not finished(status):
+                for _ in range(self.block):
+                    state = lm_step(state, source, targets, mask, config)
+                status = read(_status(state))
+            return _result(state, initial_cost), status
+        if frozen is None:
+            frozen = torch.zeros((), dtype=torch.bool, device=source.device)
+        inputs = (source, targets, mask, q0.to(source.dtype), t0.to(source.dtype), frozen)
+        key = (config,) + tuple((x.shape, x.dtype, x.device) for x in inputs)
+        graphs = self._captured.get(key)
+        if graphs is None:
+            start = time.perf_counter()
+            graphs = self._captured[key] = _Graphs(*inputs, config)
+            self.capture_seconds += time.perf_counter() - start
+        for buf, value in zip(graphs.inputs, inputs):
+            buf.copy_(value)
+        graphs.init.replay()
+        status = read(graphs.status) if config.max_iterations == 0 else (0, 0, 0)
+        while not finished(status):
+            for _ in range(self.block):
+                graphs.step.replay()
+            status = read(graphs.status)
+        # The buffers serve the next solve: hand out copies.
+        return _result(LMState(*(x.clone() for x in graphs.state)),
+                       graphs.initial_cost.clone()), status
+
+
 def em_lm_solve(
     source: torch.Tensor,
     targets: torch.Tensor,
@@ -175,7 +524,8 @@ def em_lm_solve(
     config: LMConfig,
 ) -> LMResult:
     """Run one full inner EM solve (the reference's ``solve()``,
-    iteration.hpp:52-57).
+    iteration.hpp:52-57), eagerly in blocks (a one-off solve gains nothing
+    from a capture; a registration keeps an :class:`LMBlocks` of graphs).
 
     Args:
       source: (N, 3) source points (already moved by the outer loop).
@@ -184,122 +534,5 @@ def em_lm_solve(
       q0 / t0: initial quaternion (w,x,y,z) and translation.
       config: solver configuration.
     """
-    dtype = source.dtype
-    dev = source.device
-
-    def f(v):
-        return torch.tensor(v, dtype=dtype, device=dev)
-
-    def moments(q, t):
-        return _estep_moments(
-            q, t, source, targets, mask, config.dof, config.dimension
-        )
-
-    q = q0.to(dtype)
-    t = t0.to(dtype)
-    # Initial E-step at the initial iterate (iteration.hpp:49).
-    initial_cost = moments(q, t).cost
-    cost = initial_cost
-    radius = f(config.initial_radius)
-    decrease_factor = f(2.0)
-    num_successful = torch.ones((), dtype=torch.int32, device=dev)  # Ceres counts it 0
-    minimum_cost = reference_cost = candidate_cost = initial_cost
-    acc_reference_mcc = acc_candidate_mcc = f(0.0)
-    num_nm = torch.zeros((), dtype=torch.int32, device=dev)
-    one_third = f(1.0 / 3.0)
-    max_radius = f(_MAX_TRUST_REGION_RADIUS)
-    xtol = f(config.parameter_tolerance)
-
-    iteration = 0
-    while iteration < config.max_iterations:
-        # E-step at the current iterate; everything below is O(1) in N.
-        st = moments(q, t)
-        cost = st.cost
-        H, g = _normal_from_moments(q, st, dtype)
-
-        # Levenberg-Marquardt step: (H + diag(clamp(diag H)) / radius) d = -g.
-        diag = torch.clamp(
-            torch.diagonal(H), config.min_lm_diagonal, config.max_lm_diagonal
-        )
-        delta, info = torch.linalg.solve_ex(H + torch.diag(diag / radius), -g)
-        delta_finite = torch.all(torch.isfinite(delta)) & (info == 0)
-        step_ok = delta_finite
-        delta = torch.where(step_ok, delta, 0.0)
-
-        q_new = q + delta[:4]
-        t_new = t + delta[4:]
-        cost_change_fwd = _cost_change_from_moments(q, t, q_new, t_new, st, dtype)
-        cand = cost - cost_change_fwd
-
-        # Model cost change m(0) - m(delta) = -(g.d + 0.5 d^T H d).
-        model_cost_change = -(g @ delta + 0.5 * delta @ (H @ delta))
-        step_ok = step_ok & (model_cost_change > 0) & torch.isfinite(cand)
-
-        relative_decrease = cost_change_fwd / model_cost_change
-        if config.use_nonmonotonic_steps:
-            historical = (reference_cost - cand) / (
-                acc_reference_mcc + model_cost_change
-            )
-            step_quality = torch.maximum(relative_decrease, historical)
-        else:
-            step_quality = relative_decrease
-        accepted = step_ok & (step_quality > config.min_relative_decrease)
-
-        # Trust-region radius update (Ceres LevenbergMarquardtStrategy).
-        boost = 1.0 / torch.maximum(one_third, 1.0 - (2.0 * step_quality - 1.0) ** 3)
-        radius_acc = torch.minimum(radius * boost, max_radius)
-        radius = torch.where(accepted, radius_acc, radius / decrease_factor)
-        decrease_factor = torch.where(accepted, 2.0, decrease_factor * 2.0)
-
-        # Nonmonotonic bookkeeping on acceptance.
-        new_cost = torch.where(accepted, cand, cost)
-        acc_cand = acc_candidate_mcc + model_cost_change
-        acc_ref = acc_reference_mcc + model_cost_change
-        improved = new_cost < minimum_cost
-        minimum_cost = torch.where(accepted & improved, new_cost, minimum_cost)
-        num_nm = torch.where(
-            accepted, torch.where(improved, 0, num_nm + 1), num_nm
-        ).to(torch.int32)
-        reset = accepted & (improved | (new_cost > candidate_cost))
-        candidate_cost = torch.where(reset, new_cost, candidate_cost)
-        acc_candidate_mcc = torch.where(
-            reset, 0.0, torch.where(accepted, acc_cand, acc_candidate_mcc)
-        )
-        promote = accepted & (num_nm == _MAX_CONSECUTIVE_NONMONOTONIC_STEPS)
-        reference_cost = torch.where(promote, candidate_cost, reference_cost)
-        acc_reference_mcc = torch.where(
-            promote, acc_candidate_mcc,
-            torch.where(accepted, acc_ref, acc_reference_mcc),
-        )
-
-        # Convergence: function tolerance on accepted steps; parameter
-        # tolerance on every valid step (Ceres tests the candidate x before
-        # acceptance); a dead trust region; a non-finite cost.
-        ftol_hit = accepted & (
-            torch.abs(cost_change_fwd) <= config.function_tolerance * cost
-        )
-        x_norm = torch.sqrt(q @ q + t @ t)
-        xtol_hit = delta_finite & (
-            torch.sqrt(delta @ delta) <= xtol * (x_norm + xtol)
-        )
-        done = (
-            ftol_hit | xtol_hit | (radius < _MIN_TRUST_REGION_RADIUS)
-            | ~torch.isfinite(new_cost)
-        )
-
-        q = torch.where(accepted, q_new, q)
-        t = torch.where(accepted, t_new, t)
-        cost = new_cost
-        num_successful = num_successful + accepted.to(torch.int32)
-        iteration += 1
-        if bool(done):
-            break
-
-    return LMResult(
-        q=q,
-        t=t,
-        initial_cost=initial_cost,
-        final_cost=cost,
-        num_iterations=iteration,
-        num_successful_steps=int(num_successful),
-    )
+    blocks = LMBlocks(graphs=False, block=LM_BLOCK if source.is_cuda else 1)
+    return blocks.solve(source, targets, mask, q0, t0, config)[0]

@@ -11,11 +11,17 @@ src/prob_point_cloud_registration.cc:15-158):
     move the source clouds                                   cc:110-112
     track cost drop + CSV report row                         cc:119-129
 
-Per outer iteration the device rotates the source, searches, and runs the
-EM-LM solve; the host composes 4x4 float64 transforms, applies the stopping
-rule and appends report rows. This is the JAX package's one-iteration host
-loop; its multi-iteration device scans are not ported (``outer_chunk`` is
-ignored), and by contract they give the same host-visible result.
+The loop runs in chunks of up to ``outer_chunk`` outer iterations, as the
+JAX package's scans do (``_scan_convergence`` there): per slot the device
+rotates the source by the cumulative transform it carries, searches, runs
+the EM-LM solve (models/em_lm.py: blocks of fixed-shape steps, CUDA graphs
+on a card), composes the increment onto the carried transform and applies
+the reference's stopping rule to the carried cost drop and stall counter.
+The host fetches a chunk's per-slot outputs in one transfer and replays the
+same rule on them in float64 (``_consume_chunk``), composing the 4x4
+transforms and appending the report rows. A slot the device's rule stopped
+takes no LM step and ends the chunk: the host learns it from the solve's
+block read.
 
 Search engines: "pool" (ops/fused_pool.py, the capacity-free pooled engine,
 through the CUDA select kernels on a GPU), "fused" (ops/fused_grid.py, the
@@ -35,12 +41,12 @@ engine when it prepacks, else the grid engine. (The JAX package's ``auto``
 off its accelerator is the grid engine; neighbor sets are equal.) The fused
 engine merges a grid's hot-cell overflow set after its search.
 
-When the pooled engine's budget overflows mid-pair, the iteration is redone
-at twice the row budget, twice; past that, and when the fused engine's group
-budget overflows, the rest of the pair runs on the grid engine, as in the
-JAX package: the loop says so through the output stream and counts it in
-``engine_fallbacks``. A pooled pair uploads the grid's bucket tensors only
-then.
+When the pooled engine's budget overflows in a chunk, the chunk is
+discarded and redone at twice the row budget, twice; past that, and when
+the fused engine's group budget overflows, the rest of the pair runs on the
+grid engine, as in the JAX package: the loop says so through the output
+stream and counts it in ``engine_fallbacks``. A pooled pair uploads the
+grid's bucket tensors only then.
 
 Fidelity notes:
   * The inner solve is seeded with params.initial_rotation/translation every
@@ -48,6 +54,10 @@ Fidelity notes:
   * Convergence reproduces cc:138-158 including the quirk that the check runs
     before the first iteration with cost_drop == 0, so the stall counter
     effectively starts at 1.
+  * The source and target are voxel-filtered first when
+    ``source_filter_size`` / ``target_filter_size`` > 0 (cc:24-41); the
+    search and solve use the filtered source, the MSE columns the
+    unfiltered one. The caller's arrays are not mutated.
 """
 from __future__ import annotations
 
@@ -65,7 +75,10 @@ from ..core.se3 import (
     np_matrix_to_quat,
     np_quat_to_matrix,
     np_se3_matrix,
+    quat_multiply,
+    quat_normalize,
     quat_rotate_points,
+    unit_quat_rotate,
 )
 from ..core.types import bucket_rows, pad_cloud, round_up
 from ..ops import fused_grid as _fg
@@ -80,9 +93,10 @@ from ..ops.grid import (
 )
 from ..ops.neighbors import radius_search
 from ..ops.neighbors_pallas import pallas_radius_search
+from ..ops.voxel import voxel_downsample
 from ..utils.eval import calculate_mse
 from ..utils.ostream import OutputStream
-from .em_lm import LMConfig, em_lm_solve
+from .em_lm import LMBlocks, LMConfig
 
 REPORT_HEADER = (
     "iter, n_success_steps, initial_cost, final_cost, tx, ty, tz, "
@@ -90,6 +104,10 @@ REPORT_HEADER = (
 )
 
 _ENGINES = ("auto", "pool", "fused", "grid", "pallas", "brute")
+# Columns of a chunk slot's output row (one float64 row per slot, fetched
+# for the whole chunk in one transfer); the LM trace follows at _TRACE.
+_Q, _T, _IC, _FC, _NIT, _NSUCC, _NCORR, _OVF, _EXEC, _TRACE = (
+    slice(0, 4), slice(4, 7), 7, 8, 9, 10, 11, 12, 13, 14)
 
 
 @dataclass
@@ -136,9 +154,9 @@ class ProbabilisticRegistration:
     @staticmethod
     def prepare_target(target_cloud: np.ndarray, params: RegistrationParams,
                        device: str | torch.device = "cuda") -> dict:
-        """Host-side target preprocessing for a run on ``device``: pad, grid
-        build and, when the pooled engine is the expected one, its host plan
-        (numpy only).
+        """Host-side target preprocessing for a run on ``device``: voxel
+        filter (``target_filter_size`` > 0), pad, grid build and, when the
+        pooled engine is the expected one, its host plan (host only).
 
         The pooled engine reads only the grid's cell-sorted view, so its
         grid skips the bucket tensors; they are added the moment the plan
@@ -147,6 +165,8 @@ class ProbabilisticRegistration:
         narrow-class cutoff it was made for.
         """
         target = np.asarray(target_cloud, dtype=np.float64)
+        if params.target_filter_size > 0:
+            target = voxel_downsample(target, params.target_filter_size)
         tg, n_tgt = pad_cloud(target, params.pad_multiple, pad_value=0.0)
         try_pool = _pool_expected(params, device)
         grid = None
@@ -188,8 +208,16 @@ class ProbabilisticRegistration:
         np_dtype = np.dtype(params.dtype)
 
         self.source_cloud = np.array(source_cloud, dtype=np.float64)
-        self.filtered_source = self.source_cloud.copy()
+        if params.source_filter_size > 0:
+            self.out << (f"Filtering source point cloud with leaf of size "
+                         f"{params.source_filter_size}\n")
+            self.filtered_source = voxel_downsample(self.source_cloud, params.source_filter_size)
+        else:
+            self.filtered_source = self.source_cloud.copy()
         if prepared_target is None:
+            if params.target_filter_size > 0:
+                self.out << (f"Filtering target point cloud with leaf of size "
+                             f"{params.target_filter_size}\n")
             prepared_target = self.prepare_target(target_cloud, params, self.device)
         self.target_cloud = prepared_target["target_cloud"]
         self.ground_truth = ground_truth_cloud is not None
@@ -270,9 +298,13 @@ class ProbabilisticRegistration:
             min_relative_decrease=params.min_relative_decrease,
             use_nonmonotonic_steps=params.use_nonmonotonic_steps,
         )
+        # The inner solve's blocks: on a card CUDA graphs, captured at the
+        # pair's first solve and replayed for the rest of the pair.
+        self._lm = LMBlocks.for_device(self.device)
         self.transformation_history: List[np.ndarray] = []
         self.records: List[IterationRecord] = []
         self.iteration_times: List[float] = []  # wall seconds per outer iter
+        self.inner_iterations: List[int] = []  # LM iterations per outer iter
         # Inner solves that ran into max_inner_iterations (the reference runs
         # Ceres unbounded, cc:96 — a hit means results may diverge from it).
         self.inner_cap_hits = 0
@@ -370,124 +402,180 @@ class ProbabilisticRegistration:
             small_unions=pool.small_unions, select_max_w=pool.select_max_w,
         )
 
+    def _search(self, moved):
+        """One search on the pair's engine: (Correspondences, overflow flag
+        or None, gathered target points (N, K, 3))."""
+        p = self.params
+        if self._pool is not None:
+            return self._pool_search(moved)
+        if self._prepack is not None:
+            pre = self._prepack
+            corr, overflow, gathered = _fg.fused_grid_search(
+                moved, self._src_valid, pre.cand_xyz, pre.cand_idx, pre.width_lut,
+                pre.lut_d, pre.origin_d, pre.dims_d, k=p.max_neighbours,
+                radius=p.radius, n_lanes=pre.n_lanes,
+            )
+            if self._grid.overflow_pts is not None:
+                # The merge can reorder or replace selections: gather again.
+                corr = self._merge_overflow(corr, moved)
+                gathered = self._tgt[corr.indices.long()]
+            return corr, overflow, gathered
+        if self._grid is not None:
+            g = self._grid
+            corr = grid_radius_search(
+                moved, g.bucket_pts, g.bucket_idx, g.cell_ids, g.origin, g.dims, g.lut,
+                k=p.max_neighbours, radius=p.radius, capacity=g.capacity,
+                source_valid=self._src_valid, source_tile=pick_source_tile(g.capacity),
+                select_impl=p.search_select,
+            )
+            if g.overflow_pts is not None:
+                corr = self._merge_overflow(corr, moved)
+            return corr, None, self._tgt[corr.indices.long()]
+        search = pallas_radius_search if p.search_impl == "pallas" else radius_search
+        corr = search(
+            moved, self._tgt, k=p.max_neighbours, radius=p.radius,
+            source_valid=self._src_valid, target_valid=self._tgt_valid,
+            target_tile=p.search_target_tile,
+        )
+        return corr, None, self._tgt[corr.indices.long()]
+
+    def _run_chunk(self, conv0, slots: int, q0, t0, lm_config: LMConfig) -> np.ndarray:
+        """Up to ``slots`` outer iterations with the cumulative transform and
+        the reference stopping rule carried on the device (the JAX package's
+        ``_scan_convergence``, models/registration.py:205-275 there), from
+        the host's state ``conv0`` = (cost drop as float32, stall counter,
+        iteration). Returns one float64 row per slot run (columns ``_Q`` ...
+        ``_TRACE``), fetched in one transfer.
+
+        The rule is decided in float32 here and in float64 by the host
+        (``_consume_chunk``), so the threshold is shifted down by more than
+        float32's slack: the device may run a slot the host then discards,
+        never stop where the host continues. A stopped slot takes no LM
+        step, outputs the identity quaternion and zeros, and ends the chunk
+        (its solve reads done at iteration 0); its search still ran. A slot
+        whose search overflowed ends the chunk the same way, flagged.
+        """
+        p = self.params
+        dev, dtype = self.device, self.dtype
+        t_cum = self.transformation()
+        carry = torch.as_tensor(
+            np.concatenate([np_matrix_to_quat(t_cum[:3, :3]), t_cum[:3, 3],
+                            np.array(conv0, dtype=np.float64)]),
+            device=dev,
+        )  # one upload per chunk
+        qc, tc = carry[:4].to(dtype), carry[4:7].to(dtype)
+        drop, unuseful, it = carry[7].float(), carry[8].int(), carry[9].int()
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        thresh = float(np.float32(
+            p.cost_drop_thresh - max(abs(p.cost_drop_thresh), 1.0) * 1e-5))
+        rows = []
+        for _ in range(slots):
+            low = drop < thresh
+            stop = done | (it >= p.n_iter) | (low & (unuseful > p.n_cost_drop_it))
+            unuseful = torch.where(stop, unuseful, torch.where(low, unuseful + 1, 0))
+            moved = quat_rotate_points(qc, self._src) + tc
+            corr, overflow, gathered = self._search(moved)
+            # An overflowed search's chunk is discarded: its solve takes no
+            # step either, and the chunk ends there.
+            halt = stop if overflow is None else stop | (overflow > 0)
+            res, (lm_done, lm_iterations, _) = self._lm.solve(
+                moved, gathered, corr.mask, q0, t0, lm_config, frozen=halt)
+            qn = quat_normalize(res.q)
+            qc = torch.where(stop, qc, quat_multiply(qn, qc))
+            tc = torch.where(stop, tc, unit_quat_rotate(qn, tc) + res.t)
+            ic, fc = res.initial_cost.float(), res.final_cost.float()
+            drop = torch.where(
+                stop, drop,
+                torch.where(ic != 0, (ic - fc) / torch.where(ic != 0, ic, 1.0), 0.0),
+            )
+            it = torch.where(stop, it, it + 1)
+            done = stop
+            f64 = torch.float64
+            counts = [res.num_iterations, res.num_successful_steps, corr.mask.sum(),
+                      overflow if overflow is not None else corr.mask.new_zeros(())]
+            row = torch.cat([
+                res.q.to(f64), res.t.to(f64),
+                torch.stack([res.initial_cost.to(f64), res.final_cost.to(f64)]),
+                torch.stack([c.reshape(()).to(f64) for c in counts]),
+                torch.ones(1, dtype=f64, device=dev), res.trace.to(f64).reshape(-1),
+            ])
+            frozen = torch.zeros_like(row)
+            frozen[0] = 1.0  # the identity quaternion; executed = 0
+            rows.append(torch.where(stop, frozen, row))
+            if lm_done and lm_iterations == 0:
+                break  # stopped (and so would be the rest) or overflowed
+        return torch.stack(rows).cpu().numpy()
+
+    def _overflowed(self) -> None:
+        """A chunk's pooled or fused search overflowed its budget: escalate
+        the pooled row budget (x2, twice), else move the rest of the pair to
+        the grid engine (uploaded only now)."""
+        if self._pool is not None:
+            if self._pool_budget_boost < 2:
+                self._pool_budget_boost += 1
+                self.out << (
+                    "Pooled-engine budget overflow; retrying with a "
+                    f"{1 << self._pool_budget_boost}x row budget\n"
+                )
+                return
+            self._pool = None
+            self._ensure_grid_device()
+            self.out << ("Pooled-engine budget overflow; falling back to the "
+                         "grid engine for this pair\n")
+        else:
+            # Pathologically scattered sources blew the fused engine's 2N
+            # group budget.
+            self._prepack = None
+            self.out << ("Fused-engine group overflow; falling back to the "
+                         "grid engine for this pair\n")
+        self.engine_fallbacks += 1
+
     # -- reference API ------------------------------------------------------
 
     def align(self) -> np.ndarray:
         """Run the outer loop to convergence; returns the final 4x4 transform.
 
         Per-outer-iteration wall times land in ``self.iteration_times``.
+        With ``params.profile_dir`` set, the loop runs under
+        ``torch.profiler`` (CPU and, with a card, CUDA activity) and its
+        trace is written into that directory (the JAX package's
+        ``jax.profiler.trace``).
         """
+        if self.params.profile_dir:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            handler = torch.profiler.tensorboard_trace_handler(self.params.profile_dir)
+            with torch.profiler.profile(activities=acts, on_trace_ready=handler):
+                return self._align_loop()
+        return self._align_loop()
+
+    def _align_loop(self) -> np.ndarray:
         p = self.params
         q0 = torch.tensor(p.initial_rotation, dtype=self.dtype, device=self.device)
         t0 = torch.tensor(p.initial_translation, dtype=self.dtype, device=self.device)
-        while True:
-            # has_converged() mutates the stall counter; a fallback redo of
-            # this iteration restores it so the redo's check is a replay.
-            unuseful_before = self.num_unuseful_iter
+        chunk = max(1, int(p.outer_chunk))
+        lm_config = self._lm_config._replace(trace=True) if p.trace_inner else self._lm_config
+        converged = False
+        while not converged:
+            # The device replays the host's check sequence from this
+            # snapshot, taken before has_converged() moves the counter.
+            conv0 = (np.float32(self.cost_drop), self.num_unuseful_iter,
+                     self.current_iteration)
             if self.has_converged():
                 break
             iter_start = time.perf_counter()
-            t_cum = self.transformation()
-            q_cum = torch.as_tensor(
-                np_matrix_to_quat(t_cum[:3, :3]), dtype=self.dtype, device=self.device
-            )
-            t_cum_dev = torch.as_tensor(t_cum[:3, 3], dtype=self.dtype, device=self.device)
-            moved = quat_rotate_points(q_cum, self._src) + t_cum_dev
-            if self._pool is not None:
-                corr, overflow, gathered = self._pool_search(moved)
-                if int(overflow) > 0:
-                    # A row or class-prefix budget overflowed: nothing was
-                    # consumed. Redo the iteration at a doubled budget
-                    # (twice), then on the grid engine for the rest of the
-                    # pair (uploaded only now).
-                    self.num_unuseful_iter = unuseful_before
-                    if self._pool_budget_boost < 2:
-                        self._pool_budget_boost += 1
-                        self.out << (
-                            "Pooled-engine budget overflow; retrying with a "
-                            f"{1 << self._pool_budget_boost}x row budget\n"
-                        )
-                        continue
-                    self._pool = None
-                    self._ensure_grid_device()
-                    self.engine_fallbacks += 1
-                    self.out << (
-                        "Pooled-engine budget overflow; falling back to the "
-                        "grid engine for this pair\n"
-                    )
-                    continue
-            elif self._prepack is not None:
-                pre = self._prepack
-                corr, overflow, gathered = _fg.fused_grid_search(
-                    moved,
-                    self._src_valid,
-                    pre.cand_xyz,
-                    pre.cand_idx,
-                    pre.width_lut,
-                    pre.lut_d,
-                    pre.origin_d,
-                    pre.dims_d,
-                    k=p.max_neighbours,
-                    radius=p.radius,
-                    n_lanes=pre.n_lanes,
-                )
-                if int(overflow) > 0:
-                    # Pathologically scattered sources blew the 2N group
-                    # budget: redo this iteration, and the rest of the pair,
-                    # on the grid engine.
-                    self._prepack = None
-                    self.engine_fallbacks += 1
-                    self.num_unuseful_iter = unuseful_before
-                    self.out << (
-                        "Fused-engine group overflow; falling back to the "
-                        "grid engine for this pair\n"
-                    )
-                    continue
-                if self._grid.overflow_pts is not None:
-                    # The merge can reorder or replace selections: gather
-                    # again.
-                    corr = self._merge_overflow(corr, moved)
-                    gathered = self._tgt[corr.indices.long()]
-            elif self._grid is not None:
-                g = self._grid
-                corr = grid_radius_search(
-                    moved, g.bucket_pts, g.bucket_idx, g.cell_ids, g.origin,
-                    g.dims, g.lut,
-                    k=p.max_neighbours,
-                    radius=p.radius,
-                    capacity=g.capacity,
-                    source_valid=self._src_valid,
-                    source_tile=pick_source_tile(g.capacity),
-                    select_impl=p.search_select,
-                )
-                if g.overflow_pts is not None:
-                    corr = self._merge_overflow(corr, moved)
-                gathered = self._tgt[corr.indices.long()]
-            else:
-                search = (
-                    pallas_radius_search if p.search_impl == "pallas" else radius_search
-                )
-                corr = search(
-                    moved,
-                    self._tgt,
-                    k=p.max_neighbours,
-                    radius=p.radius,
-                    source_valid=self._src_valid,
-                    target_valid=self._tgt_valid,
-                    target_tile=p.search_target_tile,
-                )
-                gathered = self._tgt[corr.indices.long()]
-            result = em_lm_solve(moved, gathered, corr.mask, q0, t0, self._lm_config)
-            self._process_iteration(
-                result.q,
-                result.t,
-                result.initial_cost,
-                result.final_cost,
-                result.num_iterations,
-                result.num_successful_steps,
-                torch.sum(corr.mask),
-                time.perf_counter() - iter_start,
-            )
+            # Slots past n_iter are stopped by the device's rule (an exact
+            # integer test): none is launched.
+            slots = max(1, min(chunk, p.n_iter - self.current_iteration))
+            outs = self._run_chunk(conv0, slots, q0, t0, lm_config)
+            if outs[:, _OVF].sum() > 0:
+                # Nothing of the chunk is consumed; the loop-top check ran for
+                # an iteration that never happened: restore its counter.
+                self.num_unuseful_iter = conv0[1]
+                self._overflowed()
+                continue
+            converged = self._consume_chunk(outs, iter_start)
 
         if self.ground_truth:
             final = self.transformation()
@@ -496,19 +584,64 @@ class ProbabilisticRegistration:
             print(f"MSE w.r.t. ground truth: {self.mse_ground_truth}")
         return self.transformation()
 
+    def _print_lm_trace(self, trace_rows, n_lm: int) -> None:
+        """Per-LM-iteration diagnostics, the analogue of the reference's
+        per-outer-iteration ``summary.FullReport()`` print (cc:108)."""
+        for i in range(int(n_lm)):
+            cost, quality, radius, accepted = trace_rows[i]
+            self.out << (
+                f"   lm_iter {i}: cost={cost:.6g} step_quality={quality:.4g} "
+                f"trust_radius={radius:.4g} {'accepted' if accepted else 'rejected'}\n"
+            )
+
+    def _consume_chunk(self, outs: np.ndarray, iter_start: float) -> bool:
+        """Host bookkeeping for a chunk (the JAX package's
+        ``_consume_chunk``, models/registration.py:1193-1234 there): the
+        reference stopping rule re-applied row by row, exactly like a
+        one-iteration loop (cc:65,138-158). Returns True when it fired
+        mid-chunk."""
+        executed = outs[:, _EXEC] > 0
+        per_iter = (time.perf_counter() - iter_start) / max(1, int(executed.sum()))
+        for j, row in enumerate(outs):
+            unuseful_before = self.num_unuseful_iter
+            if j > 0 and self.has_converged():
+                return True
+            if not executed[j]:
+                if j == 0:
+                    # The device stopped at slot 0 where the host's check
+                    # said continue. Unreachable (the device's threshold is
+                    # strictly conservative); fail rather than loop forever.
+                    raise RuntimeError(
+                        "device/host convergence rules diverged at a chunk "
+                        "boundary — report this as a bug"
+                    )
+                # The device's conservative rule stopped here and the host's
+                # has not fired (boundary slack): undo this check's counter
+                # move; the next chunk re-checks the same iteration.
+                self.num_unuseful_iter = unuseful_before
+                return False
+            if self.params.trace_inner:
+                self._print_lm_trace(row[_TRACE:].reshape(-1, 4), row[_NIT])
+            self._process_iteration(
+                row[_Q], row[_T], row[_IC], row[_FC], row[_NIT], row[_NSUCC],
+                row[_NCORR], per_iter,
+            )
+        return False
+
     def _process_iteration(
         self, q_raw, t_raw, initial_cost, final_cost, num_iterations,
         num_successful, n_corr, iter_time,
     ) -> None:
-        """Host bookkeeping for one completed outer iteration: compose the
-        incremental transform (f64), cost drop, MSE metrics, CSV record."""
+        """Host bookkeeping for one completed outer iteration (host values
+        of one chunk row): compose the incremental transform (f64), cost
+        drop, MSE metrics, CSV record."""
         p = self.params
         t_cum = self.transformation()
         # Incremental transform (iteration.hpp:59-67: quaternion normalized
         # on extraction), left-composed (cc:101-107).
-        q = q_raw.detach().cpu().numpy().astype(np.float64)
+        q = np.asarray(q_raw, dtype=np.float64)
         q = q / np.linalg.norm(q)
-        t = t_raw.detach().cpu().numpy().astype(np.float64)
+        t = np.asarray(t_raw, dtype=np.float64)
         current = np_se3_matrix(q, t) @ t_cum
         self.transformation_history.append(current)
 
@@ -553,6 +686,7 @@ class ProbabilisticRegistration:
             )
         )
         self.iteration_times.append(iter_time)
+        self.inner_iterations.append(int(num_iterations))
         self.out << (
             f"[iter {self.current_iteration}] correspondences={int(n_corr)} "
             f"cost {initial_cost:.6g} -> {final_cost:.6g} "
@@ -610,16 +744,12 @@ def _pool_expected(params: RegistrationParams, device) -> bool:
 
 
 def _check_ported(params: RegistrationParams) -> None:
-    """Raise for the options whose code is not ported yet."""
+    """Raise for a search engine this package does not have."""
     if params.search_impl not in _ENGINES:
         raise NotImplementedError(
             f"search_impl={params.search_impl!r} is not ported yet "
             f"(available: {', '.join(_ENGINES)})"
         )
-    if params.source_filter_size > 0 or params.target_filter_size > 0:
-        raise NotImplementedError("the voxel filter is not ported yet")
-    if params.trace_inner or params.profile_dir:
-        raise NotImplementedError("trace_inner and profile_dir are not ported yet")
 
 
 def register_pair(

@@ -119,10 +119,11 @@ class PrepackedGrid(NamedTuple):
 
 def dilate_cells_host(grid_host: dict, counts: np.ndarray | None = None) -> dict | None:
     """Host-side dilation tables for :func:`build_prepack` and the pool
-    plan (numpy only).
+    plan (host only).
 
-    The JAX package's numpy branch with ``dense_lut=False`` (its native C++
-    twin is held equal to it by tests/test_native.py). Takes the dict from
+    The JAX package's function with ``dense_lut=False``: the native C++
+    dilation (``native.dilate_cells``) when the library loads, else its
+    numpy body, bit for bit the same tables. Takes the dict from
     ops.grid.build_grid_host. Returns None when the extended LUT would be
     too large to materialize. The dense (prod_d,) cell->window LUT is not
     built here: the result holds the seeds the device rebuilds it from
@@ -160,29 +161,40 @@ def dilate_cells_host(grid_host: dict, counts: np.ndarray | None = None) -> dict
     if counts is None:
         counts = (grid_host["bucket_idx"] >= 0).sum(axis=1)
 
-    dil_e = (base_e[:, None] + off_e[None, :]).reshape(-1)
-    # Dense-flag unique: O(prod_e + 27u) beats sorting 27u linear ids.
-    flags = np.zeros((prod_e,), dtype=bool)
-    flags[dil_e] = True
-    d_cells_e = np.flatnonzero(flags).astype(np.int32)
-    ud = d_cells_e.shape[0]
+    # The native dilation when the library loads (as the JAX package does,
+    # ops/fused_grid.py:176-187 there); the numpy body below is its
+    # fallback and the oracle tests hold it to.
+    from .. import native as _native
 
-    # Original-grid row of each of the 27 neighbors of each dilated cell.
-    lut_e = np.full((prod_e,), -1, dtype=np.int32)
-    lut_e[base_e] = np.arange(u, dtype=np.int32)
-    nrows = lut_e[d_cells_e[:, None] + off_e[None, :]]
+    nat = _native.dilate_cells(cell_ids, dims, counts[:u])
+    if nat is not None:
+        d_cells_e, nrows, union = nat
+        ud = d_cells_e.shape[0]
+    else:
+        dil_e = (base_e[:, None] + off_e[None, :]).reshape(-1)
+        # Dense-flag unique: O(prod_e + 27u) beats sorting 27u linear ids.
+        flags = np.zeros((prod_e,), dtype=bool)
+        flags[dil_e] = True
+        d_cells_e = np.flatnonzero(flags).astype(np.int32)
+        ud = d_cells_e.shape[0]
 
-    # Real candidate union per window; the largest is the packed lane width.
-    counts_pad = np.concatenate([counts[:u], [0]]).astype(np.int32)
-    union = counts_pad[np.where(nrows >= 0, nrows, u)].sum(axis=1, dtype=np.int32)
+        # Original-grid row of each of the 27 neighbors of each dilated cell.
+        lut_e = np.full((prod_e,), -1, dtype=np.int32)
+        lut_e[base_e] = np.arange(u, dtype=np.int32)
+        nrows = lut_e[d_cells_e[:, None] + off_e[None, :]]
+
+        # Real candidate union per window.
+        counts_pad = np.concatenate([counts[:u], [0]]).astype(np.int32)
+        union = counts_pad[np.where(nrows >= 0, nrows, u)].sum(axis=1, dtype=np.int32)
+
+        # Renumber dilated rows by DESCENDING union width (stable), as the
+        # JAX package does: its kernel blocks then run near their own width.
+        perm = np.argsort(-union, kind="stable").astype(np.int32)
+        nrows = nrows[perm]
+        union = union[perm]
+        d_cells_e = d_cells_e[perm]
+    # The largest union is the packed lane width.
     max_union = int(union.max()) if union.size else 0
-
-    # Renumber dilated rows by DESCENDING union width (stable), as the JAX
-    # package does: its kernel blocks then run near their own width.
-    perm = np.argsort(-union, kind="stable").astype(np.int32)
-    nrows = nrows[perm]
-    union = union[perm]
-    d_cells_e = d_cells_e[perm]
     xe = d_cells_e % e0
     re_ = d_cells_e // e0
     ye = re_ % e1

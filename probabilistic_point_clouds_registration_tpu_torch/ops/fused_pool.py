@@ -33,7 +33,7 @@ engines' shared (d2, candidate lane) order.
 The host half (``_plan_classes`` to ``pool_seed_host``) is the JAX
 package's numpy, copied; the device half is its XLA code in torch. JAX's
 ``.at[].set(..., mode="drop")`` drops out-of-range indices; torch has no
-such mode, so :func:`_scatter_drop` masks the indices first.
+such mode, so :func:`_scatter_drop` sends them to a spare row.
 """
 from __future__ import annotations
 
@@ -573,14 +573,18 @@ def pool_seed_host(plan: dict, dtype=np.float32) -> dict:
 
 def _scatter_drop(index: torch.Tensor, values: torch.Tensor, size: int, fill=-1):
     """``full((size, *values.shape[1:]), fill).at[index].set(values,
-    mode="drop")``: entries whose index is outside [0, size) are dropped."""
+    mode="drop")``: entries whose index is outside [0, size) are dropped.
+
+    They land in a spare row past the end instead of being masked out, so
+    that no output shape depends on the data (a boolean mask would cost a
+    host sync on a card)."""
     out = torch.full(
-        (size,) + tuple(values.shape[1:]), fill, dtype=values.dtype,
+        (size + 1,) + tuple(values.shape[1:]), fill, dtype=values.dtype,
         device=values.device,
     )
     keep = (index >= 0) & (index < size)
-    out[index[keep].long()] = values[keep]
-    return out
+    out[torch.where(keep, index, size).long()] = values
+    return out[:size]
 
 
 def _scatter_lut(d_cells: torch.Tensor, row_vals: torch.Tensor, *, prod_d: int):

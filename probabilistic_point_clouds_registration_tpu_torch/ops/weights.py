@@ -51,9 +51,10 @@ def update_weights(sq_errors: torch.Tensor, mask: torch.Tensor, *, dof: float,
     Returns:
       (N, K) weights; zero at masked slots and on fully-masked rows.
     """
-    dtype = sq_errors.dtype
-    neg_inf = torch.tensor(-math.inf, dtype=dtype, device=sq_errors.device)
-    zero = torch.zeros((), dtype=dtype, device=sq_errors.device)
+    # Constants made on the device (no host copy, so a CUDA graph can hold
+    # the E-step).
+    neg_inf = sq_errors.new_full((), -math.inf)
+    zero = sq_errors.new_zeros(())
 
     if math.isinf(dof):
         log_norm_constant = (dimension / 2.0) * math.log(2.0 * math.pi)

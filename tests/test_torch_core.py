@@ -182,7 +182,8 @@ def test_port_imports_without_jax():
         "from probabilistic_point_clouds_registration_tpu_torch import kernels\n"
         "from probabilistic_point_clouds_registration_tpu_torch.ops import "
         "fused_grid, fused_pool, grid, neighbors, neighbors_pallas, select_bitonic, "
-        "select_pallas, weights\n"
+        "select_pallas, voxel, weights\n"
+        "from probabilistic_point_clouds_registration_tpu_torch import native\n"
         "from probabilistic_point_clouds_registration_tpu_torch.io import synthetic\n"
         "from probabilistic_point_clouds_registration_tpu_torch.utils import eval, ostream\n"
         "print(sorted(p.__all__))\n"
@@ -332,3 +333,33 @@ def test_kernel_benchmark_counts_an_older_tree(tmp_path):
     assert bench._counting_copy(old, "select_windows", tmp_path / "b1") is None
     counted = bench._counting_copy(old, "select_bitonic", tmp_path / "b4").read_text()
     assert counted.count("atomicAdd(&g_merges") == 1 and "merge_count" in counted
+
+
+def test_every_file_a_build_reads_is_package_data():
+    """An installed package must carry every file ``kernels.library_path``
+    hashes (the sources and every header they may include) and the native
+    library's source: each matches a ``package-data`` pattern."""
+    import fnmatch
+    import tomllib
+
+    from probabilistic_point_clouds_registration_tpu_torch import kernels, native
+
+    pkg = Path(kernels.__file__).resolve().parent
+    config = tomllib.loads((REPO / "pyproject.toml").read_text())
+    patterns = config["tool"]["setuptools"]["package-data"][pkg.name]
+    read = [*kernels._CSRC.glob("*.cu"), *kernels._CSRC.glob("*.cuh"), native._SRC]
+    assert {p.suffix for p in read} == {".cu", ".cuh", ".cpp"}
+    for path in read:
+        rel = path.relative_to(pkg).as_posix()
+        assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), rel
+
+
+def test_build_dir_variable_moves_the_builds(tmp_path, monkeypatch):
+    from probabilistic_point_clouds_registration_tpu_torch import kernels, native
+
+    default = kernels.library_path("row_topk")
+    assert default.parent == REPO / "build" / "kernels"
+    monkeypatch.setenv("PCR_TORCH_BUILD_DIR", str(tmp_path))
+    moved = kernels.library_path("row_topk")
+    assert moved == tmp_path / "kernels" / default.name
+    assert native.library_path() == tmp_path / "native" / native.library_path().name

@@ -11,19 +11,24 @@ these files. Two pairs:
   ``kitti_like`` pair and parameters, 10 fixed outer iterations
   (tests/data/torch_port_kitti131k_ref.json). Its file also records the
   plan-level facts of the target grid (capacity, hot-cell overflow count,
-  the pool's class widths at the narrow-class cutoff 0).
+  the pool's class widths at the narrow-class cutoff 0);
+* ``bunny35k_voxel``: the ``bunny35k`` pair with both clouds voxel-filtered
+  at a 0.02 leaf before registration (``source_filter_size``,
+  ``target_filter_size``; 35,000 -> about 30,000 points each)
+  (tests/data/torch_port_bunny35k_voxel_ref.json).
 
 The reference runs its XLA grid engine here, whose neighbor sets equal the
 fused and pooled engines' (tests/test_fused_grid.py, tests/test_fused_pool.py;
 the grid engine merges the hot-cell overflow set), because the Pallas
 engines' interpret mode is too slow on a CPU at these sizes. ``outer_chunk=1``
-keeps the reference on its one-iteration host loop, which is the loop the
-port runs.
+keeps the reference on its one-iteration host loop, which the port's chunks
+reproduce.
 
 Regenerate with::
 
     JAX_PLATFORMS=cpu python tests/torch_port_fixture.py bunny35k
     JAX_PLATFORMS=cpu python tests/torch_port_fixture.py kitti131k
+    JAX_PLATFORMS=cpu python tests/torch_port_fixture.py bunny35k_voxel
 """
 from __future__ import annotations
 
@@ -59,6 +64,11 @@ PAIRS = {
             max_inner_iterations=50, grid_max_overflow=4096,
         ),
     },
+}
+PAIRS["bunny35k_voxel"] = {
+    "pair": PAIRS["bunny35k"]["pair"],
+    "params": dict(PAIRS["bunny35k"]["params"], source_filter_size=0.02,
+                   target_filter_size=0.02),
 }
 
 
@@ -142,7 +152,7 @@ def main(name: str) -> None:
             for r in records
         ],
     }
-    if name != "bunny35k":
+    if name == "kitti131k":
         out["plan"] = plan_facts(name)
     path = fixture_path(name)
     path.write_text(json.dumps(out, indent=1) + "\n")
