@@ -57,7 +57,33 @@ parallel) and then, raising on the first failure:
     same records, within the fixture limits, and the slots each run spent;
 15. the bunny pair with both voxel filters (a 0.02 leaf) through ``auto``,
     against the JAX package's fixture
-    (tests/data/torch_port_bunny35k_voxel_ref.json).
+    (tests/data/torch_port_bunny35k_voxel_ref.json);
+16. the pair CLI (``cli.main``) on the bunny pair written as PCD files
+    (source binary_compressed through the native LZF, target binary, ground
+    truth ascii) with ``-v --dump -g``, 15 fixed iterations, once under
+    ``--search_impl auto`` (B4) and once under ``pallas`` (B3), each run's
+    verbose correspondences and final 4x4 against the JAX CLI's fixture
+    (tests/data/torch_port_cli_bunny35k_ref.json), and the aligned cloud
+    read back;
+17. sequence odometry at LiDAR scale: six 131,072-point ``kitti_like``
+    scans written as KITTI ``.bin`` files, listed and read back through
+    ``run_odometry`` (prefetcher, staged prep thread, checkpoint), each
+    pair against the JAX fixture (tests/data/torch_port_seq_kitti131k_ref.json:
+    relative 4x4, outer iterations), with pairs/s, the ATE, the capture
+    seconds per pair and the prep thread's seconds against the main thread's
+    wait; the same pairs with each target prepared in line, in turns with
+    the pipelined run; then a resume from the checkpoint cut to 2 pairs;
+18. loop closure and the pose graph: the square walk of a 35k ``bunny_like``
+    world through ``detect_loop_closures`` + ``refine_trajectory`` against
+    tests/data/torch_port_loop_bunny35k_ref.json, and a 4,541-pose graph
+    (two laps, a closure every 50th pose) in float64 against
+    tests/data/torch_port_pose_graph4541_ref.json, with its warm seconds and
+    host launches per Gauss-Newton step.
+
+The workloads of phases 16-18 come from ``tests/torch_port_fixture.py``
+(which builds them from the port's ``io/synthetic.py``; it imports JAX only
+inside the functions that make the fixtures). The CLIs write into the
+working directory: these phases run them in a temporary one.
 
 Phases 5, 6, 13 and 15 print whether the native host library (``native/``,
 built with g++) loaded. Each path's launch counts are set to 0 just before
@@ -80,11 +106,15 @@ back to eager or to the CPU.
 """
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -113,6 +143,9 @@ F32_FLOP_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores
 B3_OPERATIONS_PER_PAIR = 10
 TRANSFORM_ATOL = 1e-4  # final 4x4 against the fixture
 COUNT_RTOL = 1e-4  # per-iteration correspondence counts against the fixture
+REFINED_ATOL = 1e-6  # loop-closure refined poses against the fixture
+POSE_GRAPH_RTOL = 1e-9  # the 4,541-pose graph's final cost (float64)
+POSE_GRAPH_ATOL = 1e-8  # its poses (float64)
 
 
 def _cuda_ms(fn, reps: int = 20) -> float:
@@ -417,6 +450,239 @@ def _warm_pairs(port, torch, src, tgt, params, what: str) -> None:
           f"({', '.join(f'{w:.4f}' for w in total)}); that pair: ctor {ctor[i]:.4f} s, "
           f"align {align[i]:.4f} s ({len(reg.records)} iterations, median iteration "
           f"{1e3 * statistics.median(reg.iteration_times):.2f} ms)")
+
+
+def _entry_points(port, torch, native, synthetic, bunny_pair, counted, zero_counts) -> None:
+    """Phases 16-18: the pair CLI, sequence odometry, loop closure and the
+    pose graph, each against its JAX fixture."""
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_port_fixture as fx
+
+    select_bitonic = counted["select_bitonic"]
+
+    # -- 16. the pair CLI on the card ------------------------------------------
+    from probabilistic_point_clouds_registration_tpu_torch import cli as port_cli
+    from probabilistic_point_clouds_registration_tpu_torch.io.pcd import load_pcd, save_pcd
+
+    cli_fx = json.loads((DATA / "torch_port_cli_bunny35k_ref.json").read_text())
+    want_T = np.array(cli_fx["final_transform"])
+    want_corr = [it["correspondences"] for it in cli_fx["iterations"]]
+    src, tgt = bunny_pair
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            fx.write_pcd_pair(Path(tmp), save_pcd, cli_fx["cli"])
+            print(f"CLI pair files written ({', '.join(f'{n} {m}' for n, m in cli_fx['cli']['files'].items())}); "
+                  f"native host library (LZF) loaded {native.available()}")
+            for impl, kernel in (("auto", "select_bitonic"), ("pallas", "brute_knn")):
+                argv = list(cli_fx["cli"]["argv"])
+                argv[argv.index("--search_impl") + 1] = impl
+                zero_counts()
+                out = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    rc = port_cli.main(argv)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = {key: fn.launches for key, fn in counted.items()}
+                stdout = out.getvalue()
+                run = fx.parse_cli_run(stdout, Path("src_tgt_summary.txt").read_text())
+                got_T = np.array(run["final_transform"])
+                got_corr = [it["correspondences"] for it in run["iterations"]]
+                t_err = float(np.abs(got_T - want_T).max())
+                worst = max(abs(a - b) / b for a, b in zip(got_corr, want_corr))
+                aligned = load_pcd("aligned_src.pcd")
+                moved = src @ got_T[:3, :3].T + got_T[:3, 3]
+                cloud_err = float(np.abs(aligned - moved).max())
+                fallbacks = stdout.count("falling back")
+                print(f"CLI --search_impl {impl}: exit {rc}, {seconds:.4f} s, launches {launches}, "
+                      f"{len(got_corr)} iterations, final 4x4 vs JAX CLI fixture max abs diff "
+                      f"{t_err:.3e} (limit {TRANSFORM_ATOL}), worst correspondence-count diff "
+                      f"{worst:.2e} (limit {COUNT_RTOL}), fallbacks {fallbacks}; aligned cloud "
+                      f"read back {aligned.shape}, {cloud_err:.2e} from the source moved by the "
+                      f"printed 4x4, mean distance to the target "
+                      f"{float(np.linalg.norm(aligned - tgt, axis=1).mean()):.3e}")
+                if (rc != 0 or len(got_corr) != len(want_corr) or t_err > TRANSFORM_ATOL
+                        or worst > COUNT_RTOL or fallbacks or launches[kernel] < 1
+                        or aligned.shape != src.shape or not np.isfinite(aligned).all()
+                        or cloud_err > 1e-5):
+                    raise AssertionError(f"CLI --search_impl {impl}: the run disagrees with the "
+                                         f"JAX CLI fixture")
+        finally:
+            os.chdir(cwd)
+
+    # -- 17. sequence odometry at LiDAR scale ----------------------------------
+    from probabilistic_point_clouds_registration_tpu_torch.io.kitti import (
+        list_velodyne_scans,
+        load_velodyne_bin,
+    )
+    from probabilistic_point_clouds_registration_tpu_torch.models.odometry import run_odometry
+
+    seq_fx = json.loads((DATA / "torch_port_seq_kitti131k_ref.json").read_text())
+    spec = seq_fx["sequence"]
+    scans, gt_poses = synthetic.kitti_sequence(spec["scans"], spec["n_points"], seed=spec["seed"])
+    with tempfile.TemporaryDirectory() as tmp:
+        fx.write_velodyne_scans(Path(tmp), scans)
+        paths = list_velodyne_scans(tmp)
+        params = port.RegistrationParams(**spec["params"])
+        ckpt = Path(tmp) / "trajectory.json"
+        zero_counts()
+        t0 = time.perf_counter()
+        result = run_odometry(paths, params, checkpoint_path=ckpt, device="cuda")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        seq_launches = {key: fn.launches for key, fn in counted.items()}
+        n_pairs = len(result.relative_transforms)
+        iters = [len(r.splitlines()) - 1 for r in result.reports]
+        want_iters = [p["iterations"] for p in seq_fx["pairs"]]
+        errs = [float(np.abs(a - np.array(p["relative_transform"])).max())
+                for a, p in zip(result.relative_transforms, seq_fx["pairs"])]
+        print(f"kitti131k sequence ({len(paths)} .bin scans, {n_pairs} pairs, auto): "
+              f"{n_pairs / seconds:.4f} pairs/s ({seconds:.4f} s), launches {seq_launches} "
+              f"({seq_launches['select_bitonic'] / n_pairs:.1f} B4 a pair), outer iterations "
+              f"{iters} (JAX fixture {want_iters}), relative 4x4 vs fixture max abs diff per pair "
+              f"{['%.3e' % e for e in errs]} (limit {TRANSFORM_ATOL}), engine_fallbacks "
+              f"{result.engine_fallbacks}, inner_cap_hits {result.inner_cap_hits}, ATE "
+              f"{result.ate_rmse(gt_poses):.6f} m")
+        print(f"kitti131k sequence: capture seconds per pair "
+              f"{['%.4f' % c for c in result.capture_seconds]}; prep thread seconds per pair "
+              f"{['%.4f' % c for c in result.prep_seconds]} (sum {sum(result.prep_seconds):.4f}), "
+              f"main thread's wait on it {['%.4f' % c for c in result.prep_wait_seconds]} (sum "
+              f"{sum(result.prep_wait_seconds):.4f}): hidden "
+              f"{sum(result.prep_seconds) - sum(result.prep_wait_seconds):.4f} s")
+        if (n_pairs != len(seq_fx["pairs"]) or iters != want_iters
+                or max(errs) > TRANSFORM_ATOL or result.engine_fallbacks
+                or result.inner_cap_hits or seq_launches["select_bitonic"] < 1):
+            raise AssertionError("kitti131k sequence: the run disagrees with the JAX fixture")
+        # What the pipeline hides: the same pairs with each target prepared
+        # in line by the ctor (no prep thread, no staging; the scans in
+        # memory) beside the pipelined run again, in turns (in line,
+        # pipelined, pipelined, in line).
+        clouds = [load_velodyne_bin(path).astype(np.float64) for path in paths]
+        rates = {"in line": [], "pipelined": []}
+        for mode in ("in line", "pipelined", "pipelined", "in line"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "in line":
+                rels = [port.ProbabilisticRegistration(clouds[i + 1], clouds[i], params,
+                                                       device="cuda").align()
+                        for i in range(n_pairs)]
+            else:
+                rels = run_odometry(paths, params, device="cuda").relative_transforms
+            torch.cuda.synchronize()
+            rates[mode].append(n_pairs / (time.perf_counter() - t0))
+            if not all(np.array_equal(a, b) for a, b in zip(rels, result.relative_transforms)):
+                raise AssertionError(f"kitti131k sequence ({mode}): the pairs differ from the "
+                                     f"first run")
+        print(f"kitti131k sequence pairs/s in turns (in line, pipelined, pipelined, in line; "
+              f"each bit-equal to the first run): in line "
+              f"{', '.join('%.4f' % r for r in rates['in line'])}; pipelined "
+              f"{', '.join('%.4f' % r for r in rates['pipelined'])}")
+        # Resume from the checkpoint cut to 2 pairs.
+        saved = json.loads(ckpt.read_text())
+        keep = 2
+        saved.update(num_pairs=keep, poses=saved["poses"][:keep + 1],
+                     relative_transforms=saved["relative_transforms"][:keep],
+                     per_pair_cost=saved["per_pair_cost"][:keep], reports=saved["reports"][:keep])
+        ckpt.write_text(json.dumps(saved))
+        redone = []
+        resumed = run_odometry(paths, params, checkpoint_path=ckpt, device="cuda",
+                               on_pair=lambda i, pose: redone.append(i))
+        same = all(np.array_equal(a, b) for a, b in zip(resumed.poses, result.poses))
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(resumed.poses, result.poses))
+        print(f"kitti131k sequence resumed from 2 pairs: pairs redone {redone}, "
+              f"{len(resumed.poses)} poses, trajectory bit-equal {same} (max abs diff {diff:.3e})")
+        if redone != list(range(keep, n_pairs)) or len(resumed.poses) != len(result.poses) \
+                or not same:
+            raise AssertionError("kitti131k sequence: the resumed trajectory differs")
+
+    # -- 18. loop closure and the pose graph -----------------------------------
+    from probabilistic_point_clouds_registration_tpu_torch.models.loop_closure import (
+        LoopClosure,
+        detect_loop_closures,
+        refine_trajectory,
+    )
+    from probabilistic_point_clouds_registration_tpu_torch.models.odometry import OdometryResult
+    from probabilistic_point_clouds_registration_tpu_torch.models.pose_graph import (
+        optimize_pose_graph,
+    )
+
+    loop_fx = json.loads((DATA / "torch_port_loop_bunny35k_ref.json").read_text())
+    scans, gt, rels, drifted = fx.loop_problem(loop_fx["loop"])
+    odo = OdometryResult(poses=drifted, relative_transforms=rels)
+    params = port.RegistrationParams(**loop_fx["loop"]["params"])
+    zero_counts()
+    t0 = time.perf_counter()
+    closures = detect_loop_closures(scans, odo, params, **loop_fx["loop"]["detect"],
+                                    device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    refined, cost = refine_trajectory(odo, closures, device="cuda")
+    torch.cuda.synchronize()
+    detect_s, refine_s = t1 - t0, time.perf_counter() - t1
+    want = loop_fx["closures"]
+    c_errs = [float(np.abs(c.relative_transform - np.array(w["relative_transform"])).max())
+              for c, w in zip(closures, want)]
+    # The refinement from the fixture's own closures: the pose graph alone.
+    from_fixture, fixture_cost = refine_trajectory(
+        odo, [LoopClosure(w["i"], w["j"], np.array(w["relative_transform"]), w["mean_cost"])
+              for w in want], device="cuda")
+    r_err = max(float(np.abs(a - np.array(b)).max())
+                for a, b in zip(from_fixture, loop_fx["refined_poses"]))
+    own_err = max(float(np.abs(a - np.array(b)).max())
+                  for a, b in zip(refined, loop_fx["refined_poses"]))
+    drift = [float(np.linalg.norm(p[-1][:3, 3] - gt[-1][:3, 3])) for p in (drifted, refined)]
+    print(f"bunny35k square loop (auto): detection {detect_s:.4f} s, refinement "
+          f"{refine_s:.4f} s (the first pose-graph solve in the process), B4 launches "
+          f"{select_bitonic.launches}, closures {[(c.i, c.j) for c in closures]} (JAX fixture "
+          f"{[(w['i'], w['j']) for w in want]}), closure 4x4 vs fixture "
+          f"{['%.3e' % e for e in c_errs]} (limit {TRANSFORM_ATOL}); refined poses from the "
+          f"fixture's closures vs fixture {r_err:.3e} (limit {REFINED_ATOL}), cost "
+          f"{fixture_cost:.12g} vs {loop_fx['cost']:.12g}; from this run's closures {own_err:.3e} "
+          f"(limit {TRANSFORM_ATOL}); end-point drift {drift[0]:.4f} -> {drift[1]:.4f}")
+    if ([(c.i, c.j) for c in closures] != [(w["i"], w["j"]) for w in want] or not closures
+            or max(c_errs) > TRANSFORM_ATOL or r_err > REFINED_ATOL or own_err > TRANSFORM_ATOL
+            or select_bitonic.launches < 1):
+        raise AssertionError("bunny35k square loop: the run disagrees with the JAX fixture")
+
+    pg_fx = json.loads((DATA / "torch_port_pose_graph4541_ref.json").read_text())
+    poses, edges, weights = fx.pose_graph_problem(pg_fx["pose_graph"])
+    stats = {}
+    optimize_pose_graph(poses, edges, weights=weights, device="cuda")  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pg_poses, pg_cost = optimize_pose_graph(poses, edges, weights=weights, device="cuda",
+                                            stats=stats)
+    torch.cuda.synchronize()
+    pg_seconds = time.perf_counter() - t0
+    host_launches = device_kernels = 0
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        optimize_pose_graph(poses, edges, weights=weights, device="cuda")
+        torch.cuda.synchronize()
+    device_ms = 0.0
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            device_kernels += 1
+            device_ms += evt.time_range.elapsed_us() / 1e3
+        elif evt.name in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                          "cuLaunchKernelEx"):
+            host_launches += 1
+    steps = stats["gn_iterations"]
+    cost_rel = abs(pg_cost - pg_fx["cost"]) / pg_fx["cost"]
+    pose_err = max(float(np.abs(pg_poses[int(k)] - np.array(m)).max())
+                   for k, m in pg_fx["poses"].items())
+    print(f"pose graph ({len(poses)} poses, {len(edges)} edges, float64): {steps} Gauss-Newton "
+          f"steps (JAX fixture {pg_fx['gn_iterations']}), cost {pg_cost:.15g} (fixture "
+          f"{pg_fx['cost']:.15g}, relative diff {cost_rel:.2e}, limit {POSE_GRAPH_RTOL}), every "
+          f"{pg_fx['pose_graph']['keep_every']}th pose max abs diff {pose_err:.2e} (limit "
+          f"{POSE_GRAPH_ATOL}); warm solve {pg_seconds:.4f} s; host launches per GN step "
+          f"{host_launches / steps:.1f}, device kernels per GN step {device_kernels / steps:.1f}, "
+          f"device ms {device_ms:.3f} (traced solve)")
+    if (steps != pg_fx["gn_iterations"] or cost_rel > POSE_GRAPH_RTOL
+            or pose_err > POSE_GRAPH_ATOL):
+        raise AssertionError("pose graph: the solve disagrees with the JAX fixture")
 
 
 def main() -> None:
@@ -1125,7 +1391,9 @@ def main() -> None:
         raise AssertionError(f"voxel-filtered pair: engine {reg.engine}")
     _check_against_fixture(reg, final, voxel_fixture, "bunny35k voxel pool")
 
-    # -- 16. result lines ----------------------------------------------------
+    _entry_points(port, torch, native, synthetic, pairs["bunny35k"], counted, zero_counts)
+
+    # -- 19. result lines ----------------------------------------------------
     select_bound = max(select_bytes_ms, select_ops_ms)
     select_by = "bytes" if select_bytes_ms >= select_ops_ms else "operations"
     measured = {

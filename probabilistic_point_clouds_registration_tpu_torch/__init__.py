@@ -16,7 +16,14 @@ on a CUDA device) and the dense fused grouped engine (both through the CUDA
 select kernels), the hash-grid engine they fall back to (its k-selection
 through the CUDA row top-k kernel), brute force through the CUDA KNN kernel
 (``search_impl="pallas"``) and streaming brute force. All four TPU kernels
-of the JAX package have a CUDA counterpart.
+of the JAX package have a CUDA counterpart. Around the pair: PCD / KITTI /
+ETH CSV I/O and the scan prefetcher (``io/``), the evaluation metrics
+(``utils/eval.py``), the reference-compatible command line (``cli.py``,
+``python -m probabilistic_point_clouds_registration_tpu_torch``), sequence
+odometry with a staged target-prep thread (``models/odometry.py``), loop
+closure and the pose-graph solve (``models/loop_closure.py``,
+``models/pose_graph.py``) and the sequence command line
+(``cli_odometry.py``). Not ported: the multi-device paths (``parallel/``).
 """
 
 from .core.params import RegistrationParams

@@ -91,3 +91,100 @@ def transform_cloud(points: np.ndarray, matrix: np.ndarray) -> np.ndarray:
     r = matrix[:3, :3]
     t = matrix[:3, 3]
     return points @ r.T + t
+
+
+# ---------------------------------------------------------------------------
+# Sequences, loops and pose graphs (the workloads of the sequence entry
+# points; the JAX package's benchmarks/common.py, tests/test_loop_closure.py
+# and tests/test_pose_graph.py build the same ones).
+# ---------------------------------------------------------------------------
+
+
+def _rot_z(theta: float) -> np.ndarray:
+    m = np.eye(4)
+    m[:3, :3] = [
+        [np.cos(theta), -np.sin(theta), 0.0],
+        [np.sin(theta), np.cos(theta), 0.0],
+        [0.0, 0.0, 1.0],
+    ]
+    return m
+
+
+def sequence_from_world(world: np.ndarray, theta: float, translation, n_scans: int):
+    """Scans of a static world from a sensor moving by a fixed SE(3) step
+    (``theta`` about z, then ``translation``): (scans, ground-truth poses)."""
+    delta = _rot_z(theta)
+    delta[:3, 3] = translation
+    pose = np.eye(4)
+    scans, poses = [], []
+    for _ in range(n_scans):
+        inv = np.linalg.inv(pose)
+        scans.append(world @ inv[:3, :3].T + inv[:3, 3])
+        poses.append(pose.copy())
+        pose = pose @ delta
+    return scans, poses
+
+
+def kitti_sequence(n_scans: int, n_points: int = 131_072, seed: int = 0):
+    """LiDAR-like scan sequence: a ``kitti_like`` world seen from a sensor
+    moving 0.8 m / 0.01 rad per step (KITTI-like ego-motion at 10 Hz)."""
+    return sequence_from_world(kitti_like(n_points, seed=seed), 0.01, [0.8, 0.1, 0.02], n_scans)
+
+
+def square_loop(world: np.ndarray, step: float):
+    """A sensor walking a square of two ``step`` moves a side and back to
+    the start: (9 scans, 9 ground-truth poses, the 8 moves)."""
+    gt = [np.eye(4)]
+    moves = []
+    for d in ([step, 0, 0], [step, 0, 0], [0, step, 0], [0, step, 0],
+              [-step, 0, 0], [-step, 0, 0], [0, -step, 0], [0, -step, 0]):
+        m = np.eye(4)
+        m[:3, 3] = d
+        moves.append(m)
+        gt.append(gt[-1] @ m)
+    scans = []
+    for pose in gt:
+        inv = np.linalg.inv(pose)
+        scans.append(world @ inv[:3, :3].T + inv[:3, 3])
+    return scans, gt, moves
+
+
+def drifted_moves(moves, seed: int = 0, scale: float = 0.02):
+    """Odometry of ``moves`` with Gaussian translation noise per step, and
+    the poses it integrates to: (relative transforms, poses)."""
+    rng = np.random.default_rng(seed)
+    noisy = []
+    for m in moves:
+        d = np.eye(4)
+        d[:3, 3] = m[:3, 3] + rng.normal(scale=scale, size=3)
+        noisy.append(d)
+    poses = [np.eye(4)]
+    for m in noisy:
+        poses.append(poses[-1] @ m)
+    return noisy, poses
+
+
+def circle_trajectory(n: int, radius: float = 5.0, lap: int | None = None):
+    """Ground-truth poses on a circle, ``lap`` poses a lap (default ``n``:
+    one lap), heading along the tangent."""
+    lap = n if lap is None else lap
+    poses = []
+    for k in range(n):
+        a = 2 * np.pi * k / lap
+        m = _rot_z(a)
+        m[:3, 3] = [radius * np.cos(a), radius * np.sin(a), 0.0]
+        poses.append(m)
+    return poses
+
+
+def noisy_odometry(gt_poses, seed: int = 0, rot_noise: float = 0.01, t_noise: float = 0.02):
+    """Relative transforms between consecutive ground-truth poses, each
+    perturbed by a random yaw and translation."""
+    rng = np.random.default_rng(seed)
+    rels = []
+    for k in range(len(gt_poses) - 1):
+        rel = np.linalg.inv(gt_poses[k]) @ gt_poses[k + 1]
+        noise = _rot_z(rng.normal(scale=rot_noise))
+        noise[:3, 3] = rng.normal(scale=t_noise, size=3)
+        rels.append(rel @ noise)
+    return rels

@@ -393,11 +393,13 @@ def _capture(graph, fn, pool) -> None:
     """Capture ``fn``'s launches into ``graph`` on a side stream, as
     ``torch.cuda.graph`` does but without its allocator flush: emptying the
     cache at every capture would make the pair's later allocations fresh
-    ``cudaMalloc`` calls."""
+    ``cudaMalloc`` calls. The capture forbids unsafe CUDA calls in this
+    thread only: a sequence's prep thread uploads and builds the next
+    pair's target while this thread captures."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        graph.capture_begin(pool)
+        graph.capture_begin(pool, capture_error_mode="thread_local")
         try:
             fn()
         finally:

@@ -94,6 +94,7 @@ from ..ops.grid import (
 from ..ops.neighbors import radius_search
 from ..ops.neighbors_pallas import pallas_radius_search
 from ..ops.voxel import voxel_downsample
+from ..utils.device import resolve_device
 from ..utils.eval import calculate_mse
 from ..utils.ostream import OutputStream
 from .em_lm import LMBlocks, LMConfig
@@ -153,17 +154,32 @@ class ProbabilisticRegistration:
 
     @staticmethod
     def prepare_target(target_cloud: np.ndarray, params: RegistrationParams,
-                       device: str | torch.device = "cuda") -> dict:
-        """Host-side target preprocessing for a run on ``device``: voxel
-        filter (``target_filter_size`` > 0), pad, grid build and, when the
-        pooled engine is the expected one, its host plan (host only).
+                       device: str | torch.device = "cuda", *,
+                       stage: bool = False) -> dict:
+        """Target preprocessing for a run on ``device``: voxel filter
+        (``target_filter_size`` > 0), pad, grid build and, when the pooled
+        engine is the expected one, its host plan. Without ``stage`` it is
+        host only, so a sequence pipeline can run it on a background thread
+        for the next pair's target while the current pair computes.
 
         The pooled engine reads only the grid's cell-sorted view, so its
         grid skips the bucket tensors; they are added the moment the plan
         declines. ``pool_plan`` is False when the plan was attempted and
         declined, None when it was not attempted; ``pool_cutoff`` is the
         narrow-class cutoff it was made for.
+
+        ``stage=True`` (the JAX package's ``device=True``) also builds the
+        pooled engine's device state when the plan accepted the target
+        (``pool_prepack``): on a CUDA device on a stream of its own, with an
+        event (``pool_event``) that the ctor makes its stream wait on before
+        the first use. The ctor then skips its own build.
         """
+        if isinstance(device, bool):
+            raise TypeError(
+                f"prepare_target(..., device={device!r}): the third argument is "
+                "the device here; to stage the pooled engine's device state "
+                "(the JAX package's positional device=True) pass stage=True"
+            )
         target = np.asarray(target_cloud, dtype=np.float64)
         if params.target_filter_size > 0:
             target = voxel_downsample(target, params.target_filter_size)
@@ -182,8 +198,14 @@ class ProbabilisticRegistration:
             pool_plan = _fp.plan_pool_host(grid, tg, device=device) or False
             if pool_plan is False:
                 add_buckets_host(grid, tg)  # for the engines after the pool
-        return {"target_cloud": target, "tg": tg, "n_tgt": n_tgt, "grid": grid,
-                "pool_plan": pool_plan, "pool_cutoff": _fp._select_max_w(device)}
+        prepared = {"target_cloud": target, "tg": tg, "n_tgt": n_tgt, "grid": grid,
+                    "pool_plan": pool_plan, "pool_cutoff": _fp._select_max_w(device)}
+        if stage and pool_plan:
+            dev = resolve_device(device)
+            prepared["pool_device"] = dev
+            prepared["pool_prepack"], prepared["pool_event"] = _stage_pool(
+                grid, tg, pool_plan, params, dev)
+        return prepared
 
     def __init__(
         self,
@@ -197,12 +219,7 @@ class ProbabilisticRegistration:
         params.validate()
         _check_ported(params)
         self.params = params
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "device='cuda' but no CUDA device is available; pass "
-                "device='cpu' to run on the CPU"
-            )
+        self.device = resolve_device(device)
         self.out = OutputStream(params.verbose)
         self.dtype = getattr(torch, params.dtype)
         np_dtype = np.dtype(params.dtype)
@@ -250,13 +267,17 @@ class ProbabilisticRegistration:
         # Pooled row-budget escalation rung (x2 per overflow, twice).
         self._pool_budget_boost = 0
         plan = prepared_target.get("pool_plan")
+        staged = prepared_target.get("pool_prepack")
         if prepared_target.get("pool_cutoff") != _fp._select_max_w(dev):
-            plan = None  # planned for another device's cutoff
+            plan = staged = None  # planned for another device's cutoff
+        if prepared_target.get("pool_device") != dev:
+            staged = None  # staged on another device
         if grid is not None and _pool_expected(params, dev):
             if plan is None:
                 plan = _fp.plan_pool_host(grid, tg, device=dev) or False
             if plan:
-                self._init_pool(grid, tg, plan, np_dtype)
+                self._init_pool(grid, tg, plan, np_dtype, staged,
+                                prepared_target.get("pool_event"))
         if (self._pool is None and grid is not None
                 and params.search_impl in ("auto", "fused")):
             # Live bucket slots per cell = min(count, capacity), which needs
@@ -316,14 +337,25 @@ class ProbabilisticRegistration:
         self.mse_prev_it = 0.0
         self._prev_source = self.source_cloud.copy() if params.summary else None
 
-    def _init_pool(self, grid: dict, tg: np.ndarray, plan: dict, np_dtype) -> None:
-        """Build the pool and size its budgets (registration.py:917-986 of
-        the JAX package)."""
+    def _init_pool(self, grid: dict, tg: np.ndarray, plan: dict, np_dtype,
+                   staged=None, event=None) -> None:
+        """Build the pool, or take the one :meth:`prepare_target` staged,
+        and size its budgets (registration.py:917-986 of the JAX package)."""
         p = self.params
-        pool = _fp.build_pool_prepack(
-            grid, tg, dtype=np_dtype, plan=plan, k=p.max_neighbours,
-            device=self.device,
-        )
+        pool = staged
+        if pool is None:
+            pool = _fp.build_pool_prepack(
+                grid, tg, dtype=np_dtype, plan=plan, k=p.max_neighbours,
+                device=self.device,
+            )
+        elif event is not None:
+            # Staged on another stream: this stream waits for the build, and
+            # the allocator keeps the pool's blocks until this stream's work
+            # on them is done (not only the staging stream's).
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in _pool_tensors(pool):
+                t.record_stream(stream)
         # Row budget from the real source's grouping demand: the plan's
         # target-occupancy proxy undercounts moved sources (they land in
         # dilated shell cells it scores 0). The class-prefix budgets come
@@ -727,6 +759,31 @@ class ProbabilisticRegistration:
         lines = [REPORT_HEADER]
         lines += [r.csv() for r in self.records]
         return "\n".join(lines) + "\n"
+
+
+def _stage_pool(grid: dict, tg: np.ndarray, plan: dict, params: RegistrationParams,
+                dev: torch.device):
+    """(the pool prepack, the event that marks its build) for
+    ``prepare_target(stage=True)``: on a CUDA device the build runs on a
+    stream of its own, so a prep thread overlaps it with the current pair's
+    work; elsewhere it runs in line (no event)."""
+    kw = dict(dtype=np.dtype(params.dtype), plan=plan, k=params.max_neighbours, device=dev)
+    if dev.type != "cuda":
+        return _fp.build_pool_prepack(grid, tg, **kw), None
+    stream = torch.cuda.Stream(device=dev)
+    with torch.cuda.stream(stream):
+        pool = _fp.build_pool_prepack(grid, tg, **kw)
+        event = torch.cuda.Event()
+        event.record(stream)
+    return pool, event
+
+
+def _pool_tensors(pool):
+    """Every tensor a pool prepack holds (fields and tuples of them)."""
+    for value in pool:
+        for item in value if isinstance(value, tuple) else (value,):
+            if isinstance(item, torch.Tensor):
+                yield item
 
 
 def _too_dense(grid: dict, n_tgt: int, params: RegistrationParams) -> bool:

@@ -69,6 +69,65 @@ def test_se3_tensor_functions_match_jax(seed):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-12)
 
 
+def _pivot_rotations(rng):
+    """Unit quaternions whose matrices take each of the four Shepperd
+    pivots (w, x, y or z largest), plus random ones."""
+    qs = [np.array([1.0, 0.1, -0.2, 0.1]), np.array([0.05, 1.0, 0.2, -0.1]),
+          np.array([0.1, -0.2, 1.0, 0.3]), np.array([-0.1, 0.1, 0.2, 1.0])]
+    qs += list(rng.normal(size=(4, 4)))
+    return np.stack([q / np.linalg.norm(q) for q in qs])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_se3_rest_matches_jax(seed):
+    """The functions the CLI, the sequences and the pose graph need, single
+    and batched (the JAX package calls them under vmap), at 1e-12 in
+    float64."""
+    import jax
+
+    q, b, pts = _quats_and_points(seed)
+    rng = np.random.default_rng(seed)
+    tq, tb, tp = (torch.as_tensor(a, dtype=torch.float64) for a in (q, b, pts))
+    jq, jb, jp = (jnp.asarray(a, dtype=jnp.float64) for a in (q, b, pts))
+    t, t2 = rng.normal(size=3), rng.normal(size=3)
+    qs = _pivot_rotations(rng)
+    mats = np.stack([j_se3.np_quat_to_matrix(x) for x in qs])
+    angles = rng.uniform(-3.0, 3.0, size=(3, 5))
+    ta, tb_ = t_se3.SE3(tq, torch.as_tensor(t)), t_se3.SE3(tb, torch.as_tensor(t2))
+    ja, jb_ = j_se3.SE3(jq, jnp.asarray(t)), j_se3.SE3(jb, jnp.asarray(t2))
+    bq = torch.as_tensor(qs)
+    cases = [
+        (t_se3.quat_conjugate(tq), j_se3.quat_conjugate(jq)),
+        (t_se3.quat_to_matrix(tq), j_se3.quat_to_matrix(jq)),
+        (t_se3.quat_to_matrix(bq), jax.vmap(j_se3.quat_to_matrix)(jnp.asarray(qs))),
+        (t_se3.matrix_to_quat(torch.as_tensor(mats)),
+         jax.vmap(j_se3.matrix_to_quat)(jnp.asarray(mats))),
+        (t_se3.matrix_to_quat(torch.as_tensor(mats[1])), j_se3.matrix_to_quat(mats[1])),
+        (t_se3.quat_multiply(bq, bq.flip(0)),
+         jax.vmap(j_se3.quat_multiply)(jnp.asarray(qs), jnp.asarray(qs[::-1]))),
+        (t_se3.unit_quat_rotate(bq, tp[:8]),
+         jax.vmap(j_se3.unit_quat_rotate)(jnp.asarray(qs), jp[:8])),
+        (t_se3.se3_apply(ta, tp), j_se3.se3_apply(ja, jp)),
+        *zip(t_se3.se3_compose(ta, tb_), j_se3.se3_compose(ja, jb_)),
+        *zip(t_se3.se3_inverse(ta), j_se3.se3_inverse(ja)),
+        (t_se3.se3_to_matrix(ta), j_se3.se3_to_matrix(ja)),
+        (t_se3.se3_to_matrix(t_se3.SE3(bq, tp[:8])),
+         jax.vmap(lambda a, c: j_se3.se3_to_matrix(j_se3.SE3(a, c)))(jnp.asarray(qs), jp[:8])),
+        *zip(t_se3.se3_from_matrix(t_se3.se3_to_matrix(ta)),
+             j_se3.se3_from_matrix(j_se3.se3_to_matrix(ja))),
+        (t_se3.euler_zyx_to_quat(*torch.as_tensor(angles[:, 0])),
+         j_se3.euler_zyx_to_quat(*angles[:, 0])),
+        (t_se3.euler_zyx_to_quat(*torch.as_tensor(angles)),
+         jax.vmap(j_se3.euler_zyx_to_quat)(*jnp.asarray(angles))),
+    ]
+    for got, want in cases:
+        assert got.dtype == torch.float64 and tuple(got.shape) == np.shape(want)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-12)
+    d, base = rng.normal(size=(4, 4)), rng.normal(size=(4, 4))
+    np.testing.assert_array_equal(t_se3.compose_matrices(d, base),
+                                  j_se3.compose_matrices(d, base))
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_se3_host_helpers_equal_jax(seed):
     q, _, _ = _quats_and_points(seed)
@@ -173,20 +232,18 @@ def test_weights_match_jax(dof):
 
 
 def test_port_imports_without_jax():
-    """The port must import with JAX (and the JAX package) unavailable."""
+    """Every module of the port imports with JAX (and the JAX package)
+    unavailable: the test walks the package, so a new module is covered
+    the day it lands."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         "for name in ('jax', 'jaxlib', 'probabilistic_point_clouds_registration_tpu'):\n"
         "    sys.modules[name] = None\n"
         "import probabilistic_point_clouds_registration_tpu_torch as p\n"
-        "from probabilistic_point_clouds_registration_tpu_torch import kernels\n"
-        "from probabilistic_point_clouds_registration_tpu_torch.ops import "
-        "fused_grid, fused_pool, grid, neighbors, neighbors_pallas, select_bitonic, "
-        "select_pallas, voxel, weights\n"
-        "from probabilistic_point_clouds_registration_tpu_torch import native\n"
-        "from probabilistic_point_clouds_registration_tpu_torch.io import synthetic\n"
-        "from probabilistic_point_clouds_registration_tpu_torch.utils import eval, ostream\n"
-        "print(sorted(p.__all__))\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "print(len(names), sorted(p.__all__), names)\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
@@ -194,6 +251,10 @@ def test_port_imports_without_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert "ProbabilisticRegistration" in proc.stdout
+    for module in ("cli", "cli_odometry", "__main__", "io.pcd", "io.kitti", "io.eth_csv",
+                   "io.prefetch", "models.odometry", "models.loop_closure",
+                   "models.pose_graph", "ops.fused_pool", "kernels", "native"):
+        assert f"'probabilistic_point_clouds_registration_tpu_torch.{module}'" in proc.stdout
 
 
 def _script(path):
