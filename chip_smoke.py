@@ -78,9 +78,31 @@ parallel) and then, raising on the first failure:
     tests/data/torch_port_loop_bunny35k_ref.json, and a 4,541-pose graph
     (two laps, a closure every 50th pose) in float64 against
     tests/data/torch_port_pose_graph4541_ref.json, with its warm seconds and
-    host launches per Gauss-Newton step.
+    host launches per Gauss-Newton step;
+19. the mesh as a world-size-1 NCCL group (``parallel.initialize_multihost``
+    on ``tcp://localhost``, a 1x1 mesh whose axes are that group, not the
+    no-group identity): ``DistributedRegistration`` (``layout="auto"``) on
+    both pairs at full width, each final 4x4 within 5e-6 of its fixture and
+    of the single-device ``align()`` of this run, 0 fallbacks, 0 cap hits,
+    the LM blocks captured as CUDA graphs with the ``all_reduce`` inside
+    (their capture seconds printed); then ``run_odometry(mesh=)`` on the
+    first 3 scans of the kitti131k sequence against the sequence fixture's
+    first two pairs;
+20. four processes sharing the card over ``gloo`` (the backend rule: ranks
+    share a card), a 2x2 mesh, the bunny pair at full width with
+    ``layout="targets"`` (the reduce-scatter merge and the two-axis solve),
+    with ``"auto"``, and with ``debug_replication=True``: every rank's 4x4
+    bit-identical and within 5e-6 of the fixture, B4 launched on every rank;
+21. two processes, a 1x2 mesh, the bunny pair with its pooled budget
+    starved so that the ladder (x2, twice) ends on the sharded grid engine:
+    B2 launches on both ranks;
+22. the 4,541-pose graph with its edges sharded over two processes
+    (``optimize_pose_graph(mesh=)``) against the pose-graph fixture.
 
-The workloads of phases 16-18 come from ``tests/torch_port_fixture.py``
+The processes of phases 20-22 are ``tests/torch_port_mesh_worker.py``'s
+(spawned after the kernels are built; a process that fails or outlives its
+time limit fails the run); their seconds on the shared card are not scaling
+numbers. The workloads of phases 16-18 come from ``tests/torch_port_fixture.py``
 (which builds them from the port's ``io/synthetic.py``; it imports JAX only
 inside the functions that make the fixtures). The CLIs write into the
 working directory: these phases run them in a temporary one.
@@ -90,8 +112,9 @@ built with g++) loaded. Each path's launch counts are set to 0 just before
 it and read just after.
 The last two lines of standard output are a JSON line with each kernel's
 launches on the paths that run it (B1: the dense registration of step 2;
-B4: the two ``auto`` registrations; B2: the two grid registrations; B3: the
-KNN-kernel registration), its time, its twin's, the library call's where
+B4: the two ``auto`` registrations and the mesh registrations of phases
+19-20, every rank's; B2: the two grid registrations and phase 21's ranks;
+B3: the KNN-kernel registration), its time, its twin's, the library call's where
 there is one, and its bound on the same inputs (B1, B4: the class passes of
 step 3; B2: the matrices of step 7; B3: the bunny search of step 10), then
 ``{"ok": true, "device": ...}``. The bound is the larger of the bytes the
@@ -683,6 +706,171 @@ def _entry_points(port, torch, native, synthetic, bunny_pair, counted, zero_coun
     if (steps != pg_fx["gn_iterations"] or cost_rel > POSE_GRAPH_RTOL
             or pose_err > POSE_GRAPH_ATOL):
         raise AssertionError("pose graph: the solve disagrees with the JAX fixture")
+
+
+MESH_ATOL = 5e-6  # a mesh run's final 4x4 against the fixture and the single-device run
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_phases(port, torch, synthetic, fixtures, pairs, counted, zero_counts, smi) -> dict:
+    """Phases 19-22: the mesh on the card. Returns each kernel's launches
+    in these phases (every rank's)."""
+    import torch.distributed as dist
+
+    from probabilistic_point_clouds_registration_tpu_torch.models.odometry import run_odometry
+    from probabilistic_point_clouds_registration_tpu_torch.parallel import (
+        DistributedRegistration,
+        initialize_multihost,
+        make_mesh,
+    )
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_port_fixture as fx
+    import torch_port_mesh_worker as worker
+
+    added = {name: 0 for name in counted}
+
+    def phase_line(what, t0):
+        print(f"{what}: {time.perf_counter() - t0:.1f} s on {smi}")
+
+    # -- 19. a world-size-1 NCCL group ------------------------------------------
+    t_phase = time.perf_counter()
+    initialize_multihost(f"tcp://localhost:{_free_port()}", 1, 0, device="cuda",
+                         local_world_size=1)
+    mesh = make_mesh(1, 1)
+    axes = ("points", "targets")
+    if dist.get_backend() != "nccl" or not mesh.has_collectives(axes):
+        raise AssertionError(f"phase 19: backend {dist.get_backend()}, collectives "
+                             f"{mesh.has_collectives(axes)}")
+    for name, fixture in fixtures.items():
+        src, tgt = pairs[name]
+        params = _params(port, fixture, "auto")
+        single = port.ProbabilisticRegistration(src, tgt, params, device="cuda").align()
+        zero_counts()
+        t0 = time.perf_counter()
+        reg = DistributedRegistration(src, tgt, params, mesh=mesh, layout="auto")
+        final = reg.align()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {key: fn.launches for key, fn in counted.items()}
+        for key, n in launches.items():
+            added[key] += n
+        t_err, _ = _fixture_errors(reg, final, fixture, f"{name} mesh 1x1 (NCCL)")
+        s_err = float(np.abs(final - single).max())
+        print(f"{name} mesh 1x1 (NCCL, world of 1): layout {reg.layout}, {seconds:.4f} s, "
+              f"launches {launches}, LM blocks as CUDA graphs {reg._lm.graphs} with the "
+              f"all_reduce inside {mesh.has_collectives(axes)}, capture seconds "
+              f"{reg._lm.capture_seconds:.4f}; final 4x4 vs fixture {t_err:.3e}, vs the "
+              f"single-device align() {s_err:.3e} (limit {MESH_ATOL})")
+        if (t_err > MESH_ATOL or s_err > MESH_ATOL or not reg._lm.graphs
+                or not reg._lm._captured or launches["select_bitonic"] < 1):
+            raise AssertionError(f"{name} mesh 1x1: the run disagrees")
+    seq_fx = json.loads((DATA / "torch_port_seq_kitti131k_ref.json").read_text())
+    spec = seq_fx["sequence"]
+    scans, _ = synthetic.kitti_sequence(spec["scans"], spec["n_points"], seed=spec["seed"])
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = fx.write_velodyne_scans(Path(tmp), scans[:3])
+        zero_counts()
+        t0 = time.perf_counter()
+        result = run_odometry(paths, port.RegistrationParams(**spec["params"]), mesh=mesh)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    added["select_bitonic"] += counted["select_bitonic"].launches
+    errs = [float(np.abs(a - np.array(p["relative_transform"])).max())
+            for a, p in zip(result.relative_transforms, seq_fx["pairs"][:2])]
+    iters = [len(r.splitlines()) - 1 for r in result.reports]
+    want_iters = [p["iterations"] for p in seq_fx["pairs"][:2]]
+    print(f"kitti131k sequence, 3 scans, mesh 1x1 (NCCL): {seconds:.4f} s, outer iterations "
+          f"{iters} (fixture {want_iters}), relative 4x4 vs fixture {['%.3e' % e for e in errs]} "
+          f"(limit {TRANSFORM_ATOL}), B4 launches {counted['select_bitonic'].launches}")
+    if len(errs) != 2 or max(errs) > TRANSFORM_ATOL or iters != want_iters:
+        raise AssertionError("mesh odometry: the run disagrees with the sequence fixture")
+    dist.destroy_process_group()
+    phase_line("phase 19 (world-size-1 NCCL mesh)", t_phase)
+
+    bunny = fixtures["bunny35k"]
+    want_T = np.array(bunny["final_transform"])
+    want_corr = [it["correspondences"] for it in bunny["iterations"]]
+
+    def hold(res, tag, what, kernel):
+        """Every rank's run: bit-identical 4x4s, within MESH_ATOL of the
+        fixture, the fixture's correspondences, the kernel launched."""
+        runs = [r[tag] for r in res]
+        finals = [r["final"] for r in runs]
+        same = all(np.array_equal(f, finals[0]) for f in finals)
+        t_err = float(np.abs(finals[0] - want_T).max())
+        worst = max(abs(a - b) / b for a, b in zip(runs[0]["n_corr"], want_corr))
+        print(f"{what}: layout {runs[0].get('layout')}, ranks' 4x4 bit-identical {same}, vs "
+              f"fixture {t_err:.3e}, worst correspondence-count diff {worst:.2e}, engine "
+              f"{runs[0]['engine']}, fallbacks {runs[0]['engine_fallbacks']}, cap hits "
+              f"{runs[0]['inner_cap_hits']}, seconds per rank "
+              f"{['%.2f' % r['seconds'] for r in runs]}, {kernel} launches per rank "
+              f"{[r['launches'][kernel] for r in runs]}")
+        for r in runs:
+            for key, n in r["launches"].items():
+                added[key] += n
+        if (not same or len(runs[0]["n_corr"]) != len(want_corr) or worst > COUNT_RTOL
+                or runs[0]["inner_cap_hits"]
+                or any(r["launches"][kernel] < 1 for r in runs)):
+            raise AssertionError(f"{what}: the ranks disagree, the run disagrees with the "
+                                 f"fixture, or {kernel} did not launch on every rank")
+        return runs[0], t_err
+
+    # -- 20. four processes sharing the card over gloo, 2x2 ----------------------
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = worker.run_group(4, [
+            ("fixture_registration", dict(name="bunny35k", dp=2, tp=2, layout="targets",
+                                          tag="targets")),
+            ("fixture_registration", dict(name="bunny35k", dp=2, tp=2, layout="auto",
+                                          tag="auto")),
+            ("fixture_registration", dict(name="bunny35k", dp=2, tp=2, layout="targets",
+                                          debug_replication=True, tag="debug")),
+        ], tmp, device="cuda", local_world_size=4, timeout=600)
+    for tag in ("targets", "auto", "debug"):
+        run, t_err = hold(res, tag, f"bunny35k mesh 2x2 (4 processes, gloo) {tag}",
+                          "select_bitonic")
+        if t_err > MESH_ATOL or run["engine_fallbacks"] or run["graphs"]:
+            raise AssertionError(f"mesh 2x2 {tag}: {t_err:.3e} from the fixture, fallbacks "
+                                 f"{run['engine_fallbacks']}, graphs {run['graphs']}")
+    if res[0]["_jax_loaded"] or any(r["_jax_loaded"] for r in res):
+        raise AssertionError("a mesh worker loaded JAX")
+    phase_line("phase 20 (2x2 mesh, 4 processes on one card)", t_phase)
+
+    # -- 21./22. two processes: the budget ladder, the edge-sharded pose graph ---
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = worker.run_group(2, [
+            ("fixture_ladder", dict(name="bunny35k", dp=1, tp=2, tag="ladder")),
+            ("fixture_pose_graph", dict(dp=2, tag="pose_graph")),
+        ], tmp, device="cuda", local_world_size=2, timeout=600)
+    run, t_err = hold(res, "ladder", "bunny35k mesh 1x2, starved pooled budget", "row_topk")
+    if (run["engine"], run["engine_fallbacks"]) != ("grid", 1) or t_err > TRANSFORM_ATOL:
+        raise AssertionError(f"mesh ladder: engine {run['engine']}, fallbacks "
+                             f"{run['engine_fallbacks']}, {t_err:.3e} from the fixture")
+    pg_fx = json.loads((DATA / "torch_port_pose_graph4541_ref.json").read_text())
+    for rank, r in enumerate(res):
+        pg = r["pose_graph"]
+        cost_rel = abs(pg["cost"] - pg_fx["cost"]) / pg_fx["cost"]
+        pose_err = max(float(np.abs(pg["poses"][k] - np.array(m)).max())
+                       for k, m in pg_fx["poses"].items())
+        print(f"pose graph, edges sharded over 2 processes (rank {rank}): {pg['n_edges']} "
+              f"edges, {pg['gn_iterations']} Gauss-Newton steps (fixture "
+              f"{pg_fx['gn_iterations']}), cost relative diff {cost_rel:.2e} (limit "
+              f"{POSE_GRAPH_RTOL}), poses max abs diff {pose_err:.2e} (limit "
+              f"{POSE_GRAPH_ATOL}), warm solve {pg['seconds']:.4f} s")
+        if (pg["gn_iterations"] != pg_fx["gn_iterations"] or cost_rel > POSE_GRAPH_RTOL
+                or pose_err > POSE_GRAPH_ATOL or pg["cost"] != res[0]["pose_graph"]["cost"]):
+            raise AssertionError("edge-sharded pose graph: the solve disagrees")
+    phase_line("phases 21-22 (1x2 ladder, edge-sharded pose graph; 2 processes)", t_phase)
+    return added
 
 
 def main() -> None:
@@ -1392,8 +1580,14 @@ def main() -> None:
     _check_against_fixture(reg, final, voxel_fixture, "bunny35k voxel pool")
 
     _entry_points(port, torch, native, synthetic, pairs["bunny35k"], counted, zero_counts)
+    mesh_launches = _mesh_phases(port, torch, synthetic, fixtures, pairs, counted, zero_counts,
+                                 smi)
+    b1_launches += mesh_launches["select_windows"]
+    b4_launches += mesh_launches["select_bitonic"]
+    b2_launches += mesh_launches["row_topk"]
+    b3_launches += mesh_launches["brute_knn"]
 
-    # -- 19. result lines ----------------------------------------------------
+    # -- 23. result lines ----------------------------------------------------
     select_bound = max(select_bytes_ms, select_ops_ms)
     select_by = "bytes" if select_bytes_ms >= select_ops_ms else "operations"
     measured = {

@@ -23,7 +23,12 @@ ETH CSV I/O and the scan prefetcher (``io/``), the evaluation metrics
 odometry with a staged target-prep thread (``models/odometry.py``), loop
 closure and the pose-graph solve (``models/loop_closure.py``,
 ``models/pose_graph.py``) and the sequence command line
-(``cli_odometry.py``). Not ported: the multi-device paths (``parallel/``).
+(``cli_odometry.py``). The multi-device half runs on ``torch.distributed``,
+one process per mesh device (``parallel/``): the ("points", "targets")
+mesh, the sharded brute-force, grid and pooled engines with their top-k
+merges, ``DistributedRegistration``, ``run_odometry(mesh=)`` and
+``cli_odometry.py --mesh`` under torchrun, and the edge-sharded pose graph.
+Not ported: batches of pairs (the JAX package's ``parallel/batch.py``).
 """
 
 from .core.params import RegistrationParams

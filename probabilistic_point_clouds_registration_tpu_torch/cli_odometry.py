@@ -7,8 +7,14 @@ to external scripts. This command covers BASELINE.json configs #3/#4
 
 Port of the JAX package's ``cli_odometry.py``: the same flags, output and
 files, with ``--device {cuda,cpu}`` (default ``cuda``) in place of
-``--backend``; ``--dtype`` sets the compute dtype only. ``--mesh`` (the
-multi-device align) is not ported: it is refused with exit code 2.
+``--backend``; ``--dtype`` sets the compute dtype only.
+
+``--mesh DPxTP`` runs each pair's align on a mesh of DP x TP ranks, one
+process per rank under torchrun (``torchrun --standalone --nproc-per-node N
+-m probabilistic_point_clouds_registration_tpu_torch.cli_odometry ...
+--mesh DPxTP``, N = DP * TP); ``--mesh 1x1`` runs in one process. A world
+size other than DP * TP is refused with exit code 2. Only rank 0 prints and
+writes files.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from pathlib import Path
 import numpy as np
 
 from .core.params import RegistrationParams
-from .models.odometry import MESH_NOT_PORTED, run_odometry
+from .models.odometry import run_odometry
 from .utils.eval import ate_rmse
 
 
@@ -74,16 +80,35 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the registrations and the pose-graph solve run")
     p.add_argument("--mesh", default=None, metavar="DPxTP",
-                   help="Multi-device mesh for each pair's align (not ported: "
-                        "refused)")
+                   help="Multi-device mesh for each pair's align, e.g. 2x2 = 2 "
+                        "'points' shards x 2 'targets' shards: one process per "
+                        "rank under torchrun (world size DP*TP); per-pair shard "
+                        "plans and pool packing run on the prep thread")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    mesh = None
+    started_group = False
     if args.mesh:
-        print(f"--mesh {args.mesh}: {MESH_NOT_PORTED}")
-        return 2
+        import torch.distributed as dist
+
+        from .parallel import initialize_multihost, make_mesh
+
+        try:
+            dp, tp = (int(x) for x in args.mesh.lower().split("x"))
+            started_group = not dist.is_initialized() and initialize_multihost(
+                device=args.device)
+            mesh = make_mesh(dp, tp, device=None if args.device == "cuda" else "cpu")
+        except ValueError as err:
+            print(f"--mesh {args.mesh}: {err}")
+            return 2
+    main_rank = mesh is None or mesh.rank == 0
+
+    def say(*parts):
+        if main_rank:
+            print(*parts, flush=True)
 
     scan_dir = Path(args.scan_dir)
     if scan_dir.is_dir():
@@ -102,9 +127,9 @@ def main(argv=None) -> int:
     if args.max_scans:
         scans = scans[: args.max_scans]
     if len(scans) < 2:
-        print(f"Need at least 2 scans, found {len(scans)}")
+        say(f"Need at least 2 scans, found {len(scans)}")
         return 1
-    print(f"Odometry over {len(scans)} scans ({len(scans) - 1} pairs)")
+    say(f"Odometry over {len(scans)} scans ({len(scans) - 1} pairs)")
 
     params = RegistrationParams(
         max_neighbours=args.max_neighbours,
@@ -121,11 +146,13 @@ def main(argv=None) -> int:
     )
 
     ckpt = Path(args.output)
-    if args.no_resume and ckpt.exists():
+    if args.no_resume and ckpt.exists() and main_rank:
         ckpt.unlink()
+    if mesh is not None and mesh.backend is not None:
+        dist.barrier()  # no rank resumes from a checkpoint rank 0 is removing
 
-    result = run_odometry(scans, params, checkpoint_path=ckpt, device=args.device)
-    print(f"Trajectory written to {ckpt} ({len(result.poses)} poses)")
+    result = run_odometry(scans, params, checkpoint_path=ckpt, device=args.device, mesh=mesh)
+    say(f"Trajectory written to {ckpt} ({len(result.poses)} poses)")
 
     poses = result.poses
     if args.pose_graph:
@@ -138,17 +165,18 @@ def main(argv=None) -> int:
             max_mean_cost=args.closure_max_mean_cost,
             min_correspondences_per_point=args.closure_min_corr,
             max_alignment_ratio=args.closure_max_alignment,
-            verbose=args.verbose,
+            verbose=args.verbose and main_rank,
             device=args.device,
         )
-        print(f"Detected {len(closures)} loop closures")
+        say(f"Detected {len(closures)} loop closures")
         if closures:
             poses, cost = refine_trajectory(result, closures, device=args.device)
             refined_path = ckpt.with_name(ckpt.stem + "_refined" + ckpt.suffix)
-            refined_path.write_text(
-                json.dumps({"poses": [p.tolist() for p in poses]})
-            )
-            print(f"Refined trajectory written to {refined_path} (cost {cost:.4g})")
+            if main_rank:
+                refined_path.write_text(
+                    json.dumps({"poses": [p.tolist() for p in poses]})
+                )
+            say(f"Refined trajectory written to {refined_path} (cost {cost:.4g})")
 
     if args.ground_truth:
         # Dispatch by content, not filename: JSON trajectories keep working
@@ -171,7 +199,9 @@ def main(argv=None) -> int:
         gt_poses = [gt0 @ p for p in gt_poses]
         n = min(len(gt_poses), len(poses))
         rmse = ate_rmse(poses[:n], gt_poses[:n])
-        print(f"ATE RMSE vs ground truth over {n} poses: {rmse}")
+        say(f"ATE RMSE vs ground truth over {n} poses: {rmse}")
+    if started_group:
+        dist.destroy_process_group()
     return 0
 
 

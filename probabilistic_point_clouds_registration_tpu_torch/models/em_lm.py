@@ -28,6 +28,13 @@ On a CUDA device a registration's :class:`LMBlocks` captures the step as a
 CUDA graph once per input shape and replays it. On the CPU the step runs
 eagerly in blocks of one: a read costs nothing there, and a frozen step a
 whole E-step.
+
+Multi-device (``parallel/``): with ``LMConfig.axis_name`` set, the source
+rows are sharded over that mesh axis (or tuple of axes) and the E-step's 26
+moment scalars are summed across it by one ``all_reduce`` per E-step
+(``parallel.mesh.Mesh.psum``, the JAX package's ``lax.psum``), so every rank
+steps the same iterate. The solve is then given the :class:`~..parallel.mesh.Mesh`
+explicitly (``mesh=``); without an axis nothing changes.
 """
 from __future__ import annotations
 
@@ -65,6 +72,9 @@ class LMConfig(NamedTuple):
     max_lm_diagonal: float = 1e32
     min_relative_decrease: float = 1e-3
     use_nonmonotonic_steps: bool = True
+    # Mesh axis (or tuple of axes) the source rows are sharded over; the
+    # solve then reduces its moments over it through the Mesh it is given.
+    axis_name: str | tuple | None = None
     # Record per-LM-iteration (cost, step_quality, radius, accepted) into
     # LMResult.trace, the analogue of the rows of Ceres's
     # ``summary.FullReport()`` (src/prob_point_cloud_registration.cc:108).
@@ -128,15 +138,17 @@ def _rotation_matrix(q, dtype):
     return quat_rotate(q, torch.eye(3, dtype=dtype, device=q.device)).T
 
 
-def _estep_moments(q, t, source, targets, mask, dof, dimension):
-    """E-step + sufficient statistics in one (N, K) pass."""
+def _estep_moments(q, t, source, targets, mask, dof, dimension, reduce=None):
+    """E-step + sufficient statistics in one (N, K) pass; ``reduce`` (a
+    sum across the ranks that hold the other source rows) takes the 26
+    scalars as one vector."""
     r = _residuals(q, t, source, targets)  # (N, K, 3)
     e2 = torch.sum(r * r, dim=-1)
     w = update_weights(e2, mask, dof=dof, dimension=dimension)
     wm = torch.where(mask, w, 0.0)
     sw = torch.sum(wm, dim=-1)  # (N,)
     m = torch.sum(wm[..., None] * r, dim=1)  # (N, 3)
-    return _Moments(
+    stats = _Moments(
         m0=torch.sum(sw),
         m1=sw @ source,
         m2=torch.einsum("n,na,nb->ab", sw, source, source),
@@ -144,6 +156,23 @@ def _estep_moments(q, t, source, targets, mask, dof, dimension):
         smx=torch.einsum("na,nb->ab", m, source),
         cost=0.5 * torch.sum(wm * e2),
     )
+    if reduce is None:
+        return stats
+    flat = reduce(torch.cat([x.reshape(-1) for x in stats]))
+    sizes = [x.numel() for x in stats]
+    return _Moments(*(part.reshape(x.shape)
+                      for part, x in zip(torch.split(flat, sizes), stats)))
+
+
+def _reducer(config: "LMConfig", mesh):
+    """The moments' cross-rank sum for ``config.axis_name`` (None without
+    an axis)."""
+    if config.axis_name is None:
+        return None
+    if mesh is None:
+        raise ValueError(
+            f"LMConfig.axis_name={config.axis_name!r}: the solve needs the Mesh (mesh=)")
+    return lambda x: mesh.psum(x, config.axis_name)
 
 
 def _rotation_jacobian(q, dtype):
@@ -236,15 +265,17 @@ def _solve_lu(a, b):
     return torch.stack(x)
 
 
-def lm_init(source, targets, mask, q0, t0, config: LMConfig, frozen=None):
+def lm_init(source, targets, mask, q0, t0, config: LMConfig, frozen=None, mesh=None):
     """The solve's state before its first step, and its initial cost (the
     weight callback's first E-step, iteration.hpp:49).
 
     ``frozen`` (0-d bool tensor) starts the state done: no step moves it.
+    ``mesh`` serves ``config.axis_name``.
     """
     dtype = source.dtype
     initial_cost = _estep_moments(
-        q0, t0, source, targets, mask, config.dof, config.dimension
+        q0, t0, source, targets, mask, config.dof, config.dimension,
+        _reducer(config, mesh),
     ).cost
     zero = initial_cost.new_zeros(())
     izero = torch.zeros((), dtype=torch.int32, device=source.device)
@@ -271,7 +302,7 @@ def lm_init(source, targets, mask, q0, t0, config: LMConfig, frozen=None):
     return state, initial_cost
 
 
-def lm_step(s: LMState, source, targets, mask, config: LMConfig) -> LMState:
+def lm_step(s: LMState, source, targets, mask, config: LMConfig, mesh=None) -> LMState:
     """One LM iteration (the body of the JAX package's ``while_loop``,
     models/em_lm.py:319-432 there) on a fixed-shape state. A state that is
     done, or has run ``max_iterations`` steps, comes back unchanged, bit
@@ -279,7 +310,8 @@ def lm_step(s: LMState, source, targets, mask, config: LMConfig) -> LMState:
     dtype = source.dtype
     live = ~s.done & (s.iteration < config.max_iterations)
     # E-step at the current iterate; everything below is O(1) in N.
-    st = _estep_moments(s.q, s.t, source, targets, mask, config.dof, config.dimension)
+    st = _estep_moments(s.q, s.t, source, targets, mask, config.dof, config.dimension,
+                        _reducer(config, mesh))
     cost = st.cost
     H, g = _normal_from_moments(s.q, st, dtype)
 
@@ -413,7 +445,7 @@ class _Graphs:
     from one replay to the next lives in the buffers, so the two graphs
     share one memory pool; a block replays the step graph."""
 
-    def __init__(self, source, targets, mask, q0, t0, frozen, config: LMConfig):
+    def __init__(self, source, targets, mask, q0, t0, frozen, config: LMConfig, mesh=None):
         self.inputs = [x.clone() for x in (source, targets, mask, q0, t0, frozen)]
         src, tgt, msk = self.inputs[:3]
         # Eager warm-up on a side stream (library handles, the allocator),
@@ -421,20 +453,20 @@ class _Graphs:
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            state, initial_cost = lm_init(*self.inputs[:5], config, self.inputs[5])
-            state = lm_step(state, src, tgt, msk, config)
+            state, initial_cost = lm_init(*self.inputs[:5], config, self.inputs[5], mesh)
+            state = lm_step(state, src, tgt, msk, config, mesh)
             self.state = LMState(*(x.clone() for x in state))
             self.initial_cost = initial_cost.clone()
             self.status = _status(state)
         torch.cuda.current_stream().wait_stream(side)
 
         def init():
-            state, initial_cost = lm_init(*self.inputs[:5], config, self.inputs[5])
+            state, initial_cost = lm_init(*self.inputs[:5], config, self.inputs[5], mesh)
             self._store(state)
             self.initial_cost.copy_(initial_cost)
 
         def step():
-            self._store(lm_step(self.state, src, tgt, msk, config))
+            self._store(lm_step(self.state, src, tgt, msk, config, mesh))
 
         pool = torch.cuda.graph_pool_handle()
         self.init, self.step = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
@@ -457,7 +489,11 @@ class LMBlocks:
     replays them, the step ``block`` times between two reads. A capture
     costs tens of milliseconds of host time, so it pays off for a caller
     that solves many times (a registration keeps one per pair). A capture
-    that fails raises; nothing falls back to eager.
+    that fails raises; nothing falls back to eager. A solve whose
+    ``config.axis_name`` reduces across ranks captures the ``all_reduce``
+    too (NCCL); the eager warm-up before the first capture makes the
+    communicator. A collective staged through host memory cannot be
+    captured: such a caller builds its blocks with ``graphs=False``.
 
     :meth:`solve` returns the result and the solve's last read: (done,
     iteration, num_successful) as ints. A solve that was frozen from the
@@ -478,8 +514,11 @@ class LMBlocks:
         cuda = torch.device(device).type == "cuda"
         return cls(graphs=cuda, block=LM_BLOCK if cuda else 1)
 
-    def solve(self, source, targets, mask, q0, t0, config: LMConfig, frozen=None):
-        """(LMResult, the last read (done, iteration, num_successful))."""
+    def solve(self, source, targets, mask, q0, t0, config: LMConfig, frozen=None,
+              mesh=None):
+        """(LMResult, the last read (done, iteration, num_successful)).
+        ``mesh`` serves ``config.axis_name``; the state is then the same on
+        every rank, and so is every read."""
 
         def read(status):  # one device-to-host copy
             return tuple(status.tolist())
@@ -488,21 +527,21 @@ class LMBlocks:
             return bool(status[0]) or status[1] >= config.max_iterations
 
         if not self.graphs:
-            state, initial_cost = lm_init(source, targets, mask, q0, t0, config, frozen)
+            state, initial_cost = lm_init(source, targets, mask, q0, t0, config, frozen, mesh)
             status = read(_status(state)) if config.max_iterations == 0 else (0, 0, 0)
             while not finished(status):
                 for _ in range(self.block):
-                    state = lm_step(state, source, targets, mask, config)
+                    state = lm_step(state, source, targets, mask, config, mesh)
                 status = read(_status(state))
             return _result(state, initial_cost), status
         if frozen is None:
             frozen = torch.zeros((), dtype=torch.bool, device=source.device)
         inputs = (source, targets, mask, q0.to(source.dtype), t0.to(source.dtype), frozen)
-        key = (config,) + tuple((x.shape, x.dtype, x.device) for x in inputs)
+        key = (config, id(mesh)) + tuple((x.shape, x.dtype, x.device) for x in inputs)
         graphs = self._captured.get(key)
         if graphs is None:
             start = time.perf_counter()
-            graphs = self._captured[key] = _Graphs(*inputs, config)
+            graphs = self._captured[key] = _Graphs(*inputs, config, mesh)
             self.capture_seconds += time.perf_counter() - start
         for buf, value in zip(graphs.inputs, inputs):
             buf.copy_(value)
@@ -524,6 +563,7 @@ def em_lm_solve(
     q0: torch.Tensor,
     t0: torch.Tensor,
     config: LMConfig,
+    mesh=None,
 ) -> LMResult:
     """Run one full inner EM solve (the reference's ``solve()``,
     iteration.hpp:52-57), eagerly in blocks (a one-off solve gains nothing
@@ -535,6 +575,8 @@ def em_lm_solve(
       mask: (N, K) validity of each association slot.
       q0 / t0: initial quaternion (w,x,y,z) and translation.
       config: solver configuration.
+      mesh: the Mesh that ``config.axis_name`` names axes of (source rows
+        sharded over them); None without an axis.
     """
     blocks = LMBlocks(graphs=False, block=LM_BLOCK if source.is_cuda else 1)
-    return blocks.solve(source, targets, mask, q0, t0, config)[0]
+    return blocks.solve(source, targets, mask, q0, t0, config, mesh=mesh)[0]

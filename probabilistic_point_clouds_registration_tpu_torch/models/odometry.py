@@ -14,6 +14,12 @@ While pair i runs, a prep thread prepares pair i+1's target (voxel filter,
 pad, grid build, pool plan) and stages the pooled engine's device state on
 a CUDA stream of its own (``prepare_target(stage=True)``), and a
 :class:`~..io.prefetch.ScanPrefetcher` reads the next scans.
+
+With a mesh (``parallel/``) every rank runs the sequence, each pair as a
+``DistributedRegistration``; the prep thread makes the shard plans and
+packs this rank's shard's pools, with no collective (the pair's ctor
+broadcasts them on the main thread, so the ranks' collectives keep one
+order). Only rank 0 prints and writes the checkpoint.
 """
 from __future__ import annotations
 
@@ -35,8 +41,6 @@ from .registration import ProbabilisticRegistration
 CHECKPOINT_VERSION = 1
 
 ScanSource = Union[np.ndarray, str, Path]
-
-MESH_NOT_PORTED = "the multi-device paths are not ported yet (ROADMAP.md queue 1 item 6)"
 
 
 def result_final_cost(reg: ProbabilisticRegistration) -> float:
@@ -160,15 +164,22 @@ def run_odometry(
         and a pre-existing checkpoint resumes the run at the first
         unregistered pair.
       on_pair: optional callback (pair_index, absolute_pose) after each pair.
-      mesh: the JAX package's multi-device mesh; not ported (a non-None
-        value raises ``NotImplementedError``).
+      mesh: a ``parallel.Mesh``: each pair then runs the multi-device
+        align (``parallel.align.DistributedRegistration``) on every rank,
+        the mesh's device in place of ``device``. A pair whose target the
+        sharded pooled engine declines runs single-device, on every rank.
       device: where the pairs run ("cuda" unless the caller asks for "cpu").
     """
     if mesh is not None:
-        raise NotImplementedError(f"run_odometry(mesh=...): {MESH_NOT_PORTED}")
-    dev = resolve_device(device)
+        from ..parallel.align import DistributedRegistration
+        from ..parallel.mesh import Mesh
+
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh={mesh!r}: pass a parallel.Mesh (parallel.make_mesh)")
+    dev = resolve_device(device) if mesh is None else mesh.device
+    main = mesh is None or mesh.rank == 0
     params = params or RegistrationParams()
-    out = OutputStream(params.verbose)
+    out = OutputStream(params.verbose and main)
     n_scans = len(scans)
     if n_scans == 0:
         return OdometryResult()
@@ -188,7 +199,10 @@ def run_odometry(
 
     def prep(scan):
         start = time.perf_counter()
-        prepared = ProbabilisticRegistration.prepare_target(scan, params, dev, stage=True)
+        if mesh is None:
+            prepared = ProbabilisticRegistration.prepare_target(scan, params, dev, stage=True)
+        else:
+            prepared = DistributedRegistration.prepare_target(scan, params, mesh, stage=True)
         return prepared, time.perf_counter() - start
 
     start_pair = len(result.relative_transforms)
@@ -219,9 +233,17 @@ def run_odometry(
                     prep_future = None
                 out << f"[pair {i}] registering scan {i + 1} ({source.shape[0]} pts) onto scan {i} ({target.shape[0]} pts)\n"
 
-                reg = ProbabilisticRegistration(
-                    source, target, params, prepared_target=prepared, device=dev
-                )
+                if mesh is None:
+                    reg = ProbabilisticRegistration(
+                        source, target, params, prepared_target=prepared, device=dev
+                    )
+                elif prepared["sp"] is not None:
+                    reg = DistributedRegistration(
+                        source, target, params, mesh=mesh, prepared_target=prepared
+                    )
+                else:
+                    out << f"[pair {i}] sharded pooled engine declined; single-device fallback\n"
+                    reg = ProbabilisticRegistration(source, target, params, device=dev)
                 t_rel = reg.align()
 
                 pose = result.poses[-1] @ t_rel
@@ -235,7 +257,7 @@ def run_odometry(
                 result.engine_fallbacks += reg.engine_fallbacks
                 result.capture_seconds.append(reg._lm.capture_seconds)
 
-                if checkpoint_path is not None:
+                if checkpoint_path is not None and main:
                     save_checkpoint(checkpoint_path, result)
                 if on_pair is not None:
                     on_pair(i, pose)

@@ -1,5 +1,5 @@
 """Pose-graph optimization over relative-pose constraints (port of the JAX
-package's ``models/pose_graph.py``, single device).
+package's ``models/pose_graph.py``).
 
 Poses are nodes, odometry pairs and loop closures are edges with
 relative-SE(3) measurements, and the maximum-likelihood trajectory is found
@@ -24,6 +24,12 @@ carries freeze (``torch.where``) once the residual test fails, which equals
 the JAX package's ``while_loop``; the host reads ``done`` once per GN step.
 Everything is computed in the dtype of the inputs (float64 from the numpy
 wrapper).
+
+Edge-sharded (``PoseGraphConfig.axis_name``, :func:`make_sharded_pose_graph_solver`):
+every rank holds every pose and a block of the edges; the cost, J^T r, the
+preconditioner's blocks and each CG matrix-vector product's J^T J v are
+summed across the mesh axis (``Mesh.psum``), so every rank steps the same
+poses and reads the same ``done``.
 """
 from __future__ import annotations
 
@@ -42,18 +48,12 @@ from ..core.se3 import (
 )
 from ..utils.device import resolve_device
 
-SHARDED_NOT_PORTED = (
-    "PoseGraphConfig.axis_name: the edge-sharded solve is not ported yet "
-    "(ROADMAP.md queue 1 item 6)"
-)
-
-
 class PoseGraphConfig(NamedTuple):
     max_iterations: int = 20
     cg_iterations: int = 50
     damping: float = 1e-6
     tolerance: float = 1e-10  # relative cost-change stop
-    axis_name: Optional[str] = None  # the JAX package's psum axis; must be None
+    axis_name: Optional[str] = None  # mesh axis the edges are sharded over
     # Block-Jacobi PCG: precondition each CG solve with the inverted 6x6
     # diagonal blocks of J^T J + damping*I. Any SPD preconditioner leaves
     # the solution unchanged; on a drifted loop the same CG budget gets
@@ -142,21 +142,22 @@ def _gauge(delta):
     return torch.cat([torch.zeros_like(delta[:1]), delta[1:]])
 
 
-def _jt(a, b, edges_i, edges_j, r, n_poses: int):
-    """J^T r for per-edge residual vectors r (E, 6): (P, 6)."""
+def _jt(a, b, edges_i, edges_j, r, n_poses: int, reduce=None):
+    """J^T r for per-edge residual vectors r (E, 6): (P, 6); ``reduce``
+    sums it over the ranks that hold the other edges."""
     out = torch.zeros((n_poses, 6), dtype=r.dtype, device=r.device)
     out.index_add_(0, edges_i, torch.bmm(a.transpose(1, 2), r[:, :, None])[:, :, 0])
     out.index_add_(0, edges_j, torch.bmm(b.transpose(1, 2), r[:, :, None])[:, :, 0])
-    return out
+    return out if reduce is None else reduce(out)
 
 
-def _jtj_matvec(a, b, edges_i, edges_j, v, damping: float):
+def _jtj_matvec(a, b, edges_i, edges_j, v, damping: float, reduce=None):
     """(J^T J + damping I) v with pose 0 gauge-fixed, J the stacked edge
     Jacobians: the JAX package's JVP + VJP product (pose_graph.py:207-220)
     as gathers, batched products and scatter-adds."""
     g = _gauge(v)
     jv = (torch.bmm(a, g[edges_i][:, :, None]) + torch.bmm(b, g[edges_j][:, :, None]))[:, :, 0]
-    return _gauge(_jt(a, b, edges_i, edges_j, jv, v.shape[0])) + damping * v
+    return _gauge(_jt(a, b, edges_i, edges_j, jv, v.shape[0], reduce)) + damping * v
 
 
 def _conjugate_gradient(matvec, b, maxiter: int, rtol: float = 1e-5, precond=None):
@@ -196,16 +197,30 @@ def optimize_pose_graph_qt(
     weights,
     config: PoseGraphConfig,
     stats: Optional[dict] = None,
+    mesh=None,
 ):
     """Gauss-Newton pose-graph solve on (P, 4)+(P, 3) pose tensors, on their
     device and in their dtype.
 
     Returns (q (P,4), t (P,3), final_cost). Pose 0 is gauge-fixed. When a
     ``stats`` dict is given, it receives ``gn_iterations`` (GN steps
-    taken).
+    taken). With ``config.axis_name`` the edge arrays are this rank's block
+    and ``mesh`` (a ``parallel.Mesh``) sums over that axis.
     """
+    reduce = None
     if config.axis_name is not None:
-        raise NotImplementedError(SHARDED_NOT_PORTED)
+        if mesh is None:
+            raise ValueError(
+                f"PoseGraphConfig.axis_name={config.axis_name!r}: the sharded solve needs "
+                "the Mesh (make_sharded_pose_graph_solver)")
+        axis = config.axis_name
+
+        def reduce(x):
+            return mesh.psum(x, axis)
+
+    def psum(x):
+        return x if reduce is None else reduce(x)
+
     n_poses = base_q.shape[0]
     edges_i, edges_j = edges_i.long(), edges_j.long()
     rel_q_inv = quat_conjugate(quat_normalize(rel_q))
@@ -216,7 +231,7 @@ def optimize_pose_graph_qt(
 
     def total_cost(q, t):
         r = _edge_residuals(q, t, *edge_args)
-        return 0.5 * torch.sum(r * r)
+        return 0.5 * psum(torch.sum(r * r))
 
     q, t = base_q, base_t
     cost = total_cost(q, t)
@@ -226,19 +241,19 @@ def optimize_pose_graph_qt(
         zero = torch.zeros((n_poses, 6), dtype=q.dtype, device=q.device)
         r0 = _edge_residuals(*_retract(q, t, zero), *edge_args)
         a, b = _edge_jacobians(q, t, *edge_args)
-        g = _gauge(_jt(a, b, edges_i, edges_j, r0, n_poses))  # J^T r
+        g = _gauge(_jt(a, b, edges_i, edges_j, r0, n_poses, reduce))  # J^T r
         precond = None
         if config.precondition:
             blocks = torch.zeros((n_poses, 6, 6), dtype=q.dtype, device=q.device)
             blocks.index_add_(0, edges_i, a.transpose(1, 2) @ a)
             blocks.index_add_(0, edges_j, b.transpose(1, 2) @ b)
-            m_inv = torch.linalg.inv(blocks + config.damping * eye)  # SPD by construction
+            m_inv = torch.linalg.inv(psum(blocks) + config.damping * eye)  # SPD by construction
 
             def precond(v):
                 return torch.bmm(m_inv, v[:, :, None])[:, :, 0]
 
         delta = _conjugate_gradient(
-            lambda v: _jtj_matvec(a, b, edges_i, edges_j, v, config.damping),
+            lambda v: _jtj_matvec(a, b, edges_i, edges_j, v, config.damping, reduce),
             -g, config.cg_iterations, precond=precond,
         )
         q_new, t_new = _retract(q, t, _gauge(delta))
@@ -267,12 +282,29 @@ def optimize_pose_graph(
     config: PoseGraphConfig = PoseGraphConfig(),
     device="cuda",
     stats: Optional[dict] = None,
+    mesh=None,
 ) -> Tuple[list, float]:
     """Numpy-facing wrapper: 4x4 poses + (i, j, T_ij 4x4) edges, solved in
     float64 on ``device``.
 
     Returns (refined 4x4 poses, final cost). Pose 0 is held fixed (gauge).
+    With a ``mesh`` (``parallel.Mesh``, on its device) the edges are
+    sharded over its ``"points"`` axis: padded to a multiple of the axis
+    with zero-weight edges (pose 0 to itself, which add exact zeros), and
+    each rank solves on its block (:func:`make_sharded_pose_graph_solver`).
     """
+    edges, weights = list(edges), None if weights is None else list(weights)
+    if mesh is not None:
+        from ..parallel.mesh import POINTS_AXIS
+
+        n_pad = (-len(edges)) % mesh.shape[POINTS_AXIS]
+        weights = ([1.0] * len(edges) if weights is None else weights) + [0.0] * n_pad
+        edges = edges + [(0, 0, np.eye(4))] * n_pad
+        per = len(edges) // mesh.shape[POINTS_AXIS]
+        mine = slice(mesh.index(POINTS_AXIS) * per, (mesh.index(POINTS_AXIS) + 1) * per)
+        edges, weights = edges[mine], weights[mine]
+        config = config._replace(axis_name=POINTS_AXIS)
+        device = mesh.device
     dev = resolve_device(device)
 
     def put(x, dtype=torch.float64):
@@ -286,7 +318,8 @@ def optimize_pose_graph(
     rt = put(np.stack([np.asarray(e[2], np.float64)[:3, 3] for e in edges]))
     w = put(np.ones(len(edges)) if weights is None else np.asarray(weights, np.float64))
 
-    q, t, cost = optimize_pose_graph_qt(base_q, base_t, ei, ej, rq, rt, w, config, stats)
+    q, t, cost = optimize_pose_graph_qt(base_q, base_t, ei, ej, rq, rt, w, config, stats,
+                                        mesh=mesh)
     rot = quat_to_matrix(q).cpu().numpy()
     t = t.cpu().numpy()
     out = []
@@ -305,3 +338,22 @@ def odometry_edges(relative_transforms: Sequence[np.ndarray], weight: float = 1.
         (k, k + 1, np.asarray(t, dtype=np.float64))
         for k, t in enumerate(relative_transforms)
     ]
+
+
+def make_sharded_pose_graph_solver(mesh, config: PoseGraphConfig = PoseGraphConfig()):
+    """Edge-sharded pose-graph solve over the mesh's ``"points"`` axis:
+
+      solve(base_q, base_t, ei, ej, rq, rt, w) -> (q, t, final_cost)
+
+    Every rank passes every pose and its own block of the edges (rank p of
+    the axis the p-th of equal contiguous blocks, as ``shard_rows`` cuts
+    them); the result is the same on every rank.
+    """
+    from ..parallel.mesh import POINTS_AXIS
+
+    cfg = config._replace(axis_name=POINTS_AXIS)
+
+    def solve(base_q, base_t, ei, ej, rq, rt, w, stats: Optional[dict] = None):
+        return optimize_pose_graph_qt(base_q, base_t, ei, ej, rq, rt, w, cfg, stats, mesh=mesh)
+
+    return solve

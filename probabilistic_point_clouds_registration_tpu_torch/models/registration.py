@@ -64,7 +64,7 @@ from __future__ import annotations
 import time
 import warnings
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -109,6 +109,17 @@ _ENGINES = ("auto", "pool", "fused", "grid", "pallas", "brute")
 # for the whole chunk in one transfer); the LM trace follows at _TRACE.
 _Q, _T, _IC, _FC, _NIT, _NSUCC, _NCORR, _OVF, _EXEC, _TRACE = (
     slice(0, 4), slice(4, 7), 7, 8, 9, 10, 11, 12, 13, 14)
+
+
+class Association(NamedTuple):
+    """One outer iteration's search result as the solve takes it."""
+
+    source: torch.Tensor  # (N', 3) the moved source rows the solve runs over
+    targets: torch.Tensor  # (N', K, 3) their gathered neighbors
+    mask: torch.Tensor  # (N', K)
+    n_corr: torch.Tensor  # 0-d correspondences (over every rank of a mesh)
+    overflow: Optional[torch.Tensor]  # 0-d budget overflow; None: the engine has none
+    probe: Optional[torch.Tensor] = None  # what a replication check compares
 
 
 @dataclass
@@ -216,33 +227,15 @@ class ProbabilisticRegistration:
         prepared_target: Optional[dict] = None,
         device: str | torch.device = "cuda",
     ):
-        params.validate()
-        _check_ported(params)
-        self.params = params
-        self.device = resolve_device(device)
-        self.out = OutputStream(params.verbose)
-        self.dtype = getattr(torch, params.dtype)
+        self._init_host_prelude(source_cloud, params, device)
         np_dtype = np.dtype(params.dtype)
-
-        self.source_cloud = np.array(source_cloud, dtype=np.float64)
-        if params.source_filter_size > 0:
-            self.out << (f"Filtering source point cloud with leaf of size "
-                         f"{params.source_filter_size}\n")
-            self.filtered_source = voxel_downsample(self.source_cloud, params.source_filter_size)
-        else:
-            self.filtered_source = self.source_cloud.copy()
         if prepared_target is None:
             if params.target_filter_size > 0:
                 self.out << (f"Filtering target point cloud with leaf of size "
                              f"{params.target_filter_size}\n")
             prepared_target = self.prepare_target(target_cloud, params, self.device)
         self.target_cloud = prepared_target["target_cloud"]
-        self.ground_truth = ground_truth_cloud is not None
-        self.mse_ground_truth = 0.0
-        if self.ground_truth:
-            self.ground_truth_cloud = np.array(ground_truth_cloud, dtype=np.float64)
-            self.mse_ground_truth = calculate_mse(self.source_cloud, self.ground_truth_cloud)
-            self.out << f"Initial MSE w.r.t. ground truth: {self.mse_ground_truth}\n"
+        self._init_ground_truth(ground_truth_cloud)
 
         fs, self._n_src = pad_cloud(self.filtered_source, params.pad_multiple, pad_value=0.0)
         tg, self._n_tgt = prepared_target["tg"], prepared_target["n_tgt"]
@@ -264,8 +257,6 @@ class ProbabilisticRegistration:
         self._pool = None
         self._pool_budget_base = 0
         self._pool_class_cum = None
-        # Pooled row-budget escalation rung (x2 per overflow, twice).
-        self._pool_budget_boost = 0
         plan = prepared_target.get("pool_plan")
         staged = prepared_target.get("pool_prepack")
         if prepared_target.get("pool_cutoff") != _fp._select_max_w(dev):
@@ -308,7 +299,44 @@ class ProbabilisticRegistration:
             else "brute"
         )
 
-        self._lm_config = LMConfig(
+        self._lm_config = self._make_lm_config(params)
+        # The inner solve's blocks: on a card CUDA graphs, captured at the
+        # pair's first solve and replayed for the rest of the pair.
+        self._lm = LMBlocks.for_device(self.device)
+        self._init_bookkeeping(params)
+
+    def _init_host_prelude(self, source_cloud, params: RegistrationParams, device,
+                           main: bool = True) -> None:
+        """Ctor prelude shared with ``parallel.align.DistributedRegistration``:
+        validation, device, output stream (silent unless ``main``, the rank
+        that prints), source load and voxel filter."""
+        params.validate()
+        _check_ported(params)
+        self.params = params
+        self.device = resolve_device(device)
+        self._is_main = main
+        self.out = OutputStream(params.verbose and main)
+        self.dtype = getattr(torch, params.dtype)
+        self.source_cloud = np.array(source_cloud, dtype=np.float64)
+        if params.source_filter_size > 0:
+            self.out << (f"Filtering source point cloud with leaf of size "
+                         f"{params.source_filter_size}\n")
+            self.filtered_source = voxel_downsample(self.source_cloud, params.source_filter_size)
+        else:
+            self.filtered_source = self.source_cloud.copy()
+
+    def _init_ground_truth(self, ground_truth_cloud: Optional[np.ndarray]) -> None:
+        """Ground-truth MSE bookkeeping (reference ..._ex.cc:128-139)."""
+        self.ground_truth = ground_truth_cloud is not None
+        self.mse_ground_truth = 0.0
+        if self.ground_truth:
+            self.ground_truth_cloud = np.array(ground_truth_cloud, dtype=np.float64)
+            self.mse_ground_truth = calculate_mse(self.source_cloud, self.ground_truth_cloud)
+            self.out << f"Initial MSE w.r.t. ground truth: {self.mse_ground_truth}\n"
+
+    @staticmethod
+    def _make_lm_config(params: RegistrationParams) -> LMConfig:
+        return LMConfig(
             dof=params.dof,
             dimension=3,
             function_tolerance=params.function_tolerance,
@@ -319,9 +347,10 @@ class ProbabilisticRegistration:
             min_relative_decrease=params.min_relative_decrease,
             use_nonmonotonic_steps=params.use_nonmonotonic_steps,
         )
-        # The inner solve's blocks: on a card CUDA graphs, captured at the
-        # pair's first solve and replayed for the rest of the pair.
-        self._lm = LMBlocks.for_device(self.device)
+
+    def _init_bookkeeping(self, params: RegistrationParams) -> None:
+        """Outer-loop state shared with the multi-device ``align()``:
+        history, records, convergence counters, the pooled budget rung."""
         self.transformation_history: List[np.ndarray] = []
         self.records: List[IterationRecord] = []
         self.iteration_times: List[float] = []  # wall seconds per outer iter
@@ -331,6 +360,8 @@ class ProbabilisticRegistration:
         self.inner_cap_hits = 0
         # Mid-pair moves from the pooled or fused engine to the grid engine.
         self.engine_fallbacks = 0
+        # Pooled row-budget escalation rung (x2 per overflow, twice).
+        self._pool_budget_boost = 0
         self.current_iteration = 0
         self.cost_drop = 0.0
         self.num_unuseful_iter = 0
@@ -471,72 +502,20 @@ class ProbabilisticRegistration:
         )
         return corr, None, self._tgt[corr.indices.long()]
 
-    def _run_chunk(self, conv0, slots: int, q0, t0, lm_config: LMConfig) -> np.ndarray:
-        """Up to ``slots`` outer iterations with the cumulative transform and
-        the reference stopping rule carried on the device (the JAX package's
-        ``_scan_convergence``, models/registration.py:205-275 there), from
-        the host's state ``conv0`` = (cost drop as float32, stall counter,
-        iteration). Returns one float64 row per slot run (columns ``_Q`` ...
-        ``_TRACE``), fetched in one transfer.
+    def _associate(self, moved) -> Association:
+        """One search on the pair's engine, as the solve takes it."""
+        corr, overflow, gathered = self._search(moved)
+        return Association(moved, gathered, corr.mask, corr.mask.sum(), overflow)
 
-        The rule is decided in float32 here and in float64 by the host
-        (``_consume_chunk``), so the threshold is shifted down by more than
-        float32's slack: the device may run a slot the host then discards,
-        never stop where the host continues. A stopped slot takes no LM
-        step, outputs the identity quaternion and zeros, and ends the chunk
-        (its solve reads done at iteration 0); its search still ran. A slot
-        whose search overflowed ends the chunk the same way, flagged.
-        """
+    def _run_chunk(self, conv0, slots: int, q0, t0, lm_config: LMConfig) -> np.ndarray:
+        """Up to ``slots`` outer iterations from the host's state (see
+        :func:`scan_convergence`)."""
         p = self.params
-        dev, dtype = self.device, self.dtype
-        t_cum = self.transformation()
-        carry = torch.as_tensor(
-            np.concatenate([np_matrix_to_quat(t_cum[:3, :3]), t_cum[:3, 3],
-                            np.array(conv0, dtype=np.float64)]),
-            device=dev,
-        )  # one upload per chunk
-        qc, tc = carry[:4].to(dtype), carry[4:7].to(dtype)
-        drop, unuseful, it = carry[7].float(), carry[8].int(), carry[9].int()
-        done = torch.zeros((), dtype=torch.bool, device=dev)
-        thresh = float(np.float32(
-            p.cost_drop_thresh - max(abs(p.cost_drop_thresh), 1.0) * 1e-5))
-        rows = []
-        for _ in range(slots):
-            low = drop < thresh
-            stop = done | (it >= p.n_iter) | (low & (unuseful > p.n_cost_drop_it))
-            unuseful = torch.where(stop, unuseful, torch.where(low, unuseful + 1, 0))
-            moved = quat_rotate_points(qc, self._src) + tc
-            corr, overflow, gathered = self._search(moved)
-            # An overflowed search's chunk is discarded: its solve takes no
-            # step either, and the chunk ends there.
-            halt = stop if overflow is None else stop | (overflow > 0)
-            res, (lm_done, lm_iterations, _) = self._lm.solve(
-                moved, gathered, corr.mask, q0, t0, lm_config, frozen=halt)
-            qn = quat_normalize(res.q)
-            qc = torch.where(stop, qc, quat_multiply(qn, qc))
-            tc = torch.where(stop, tc, unit_quat_rotate(qn, tc) + res.t)
-            ic, fc = res.initial_cost.float(), res.final_cost.float()
-            drop = torch.where(
-                stop, drop,
-                torch.where(ic != 0, (ic - fc) / torch.where(ic != 0, ic, 1.0), 0.0),
-            )
-            it = torch.where(stop, it, it + 1)
-            done = stop
-            f64 = torch.float64
-            counts = [res.num_iterations, res.num_successful_steps, corr.mask.sum(),
-                      overflow if overflow is not None else corr.mask.new_zeros(())]
-            row = torch.cat([
-                res.q.to(f64), res.t.to(f64),
-                torch.stack([res.initial_cost.to(f64), res.final_cost.to(f64)]),
-                torch.stack([c.reshape(()).to(f64) for c in counts]),
-                torch.ones(1, dtype=f64, device=dev), res.trace.to(f64).reshape(-1),
-            ])
-            frozen = torch.zeros_like(row)
-            frozen[0] = 1.0  # the identity quaternion; executed = 0
-            rows.append(torch.where(stop, frozen, row))
-            if lm_done and lm_iterations == 0:
-                break  # stopped (and so would be the rest) or overflowed
-        return torch.stack(rows).cpu().numpy()
+        return scan_convergence(
+            self._associate, self._lm, self._src, self.transformation(), conv0, q0, t0,
+            lm_config, slots=slots, n_iter=p.n_iter, cost_drop_thresh=p.cost_drop_thresh,
+            n_cost_drop_it=p.n_cost_drop_it,
+        )
 
     def _overflowed(self) -> None:
         """A chunk's pooled or fused search overflowed its budget: escalate
@@ -613,7 +592,8 @@ class ProbabilisticRegistration:
             final = self.transformation()
             aligned = self.source_cloud @ final[:3, :3].T + final[:3, 3]
             self.mse_ground_truth = calculate_mse(aligned, self.ground_truth_cloud)
-            print(f"MSE w.r.t. ground truth: {self.mse_ground_truth}")
+            if self._is_main:
+                print(f"MSE w.r.t. ground truth: {self.mse_ground_truth}")
         return self.transformation()
 
     def _print_lm_trace(self, trace_rows, n_lm: int) -> None:
@@ -759,6 +739,81 @@ class ProbabilisticRegistration:
         lines = [REPORT_HEADER]
         lines += [r.csv() for r in self.records]
         return "\n".join(lines) + "\n"
+
+
+def scan_convergence(associate, lm: LMBlocks, source, t_cum: np.ndarray, conv0, q0, t0,
+                     lm_config: LMConfig, *, slots: int, n_iter: int, cost_drop_thresh: float,
+                     n_cost_drop_it: int, mesh=None, check=None) -> np.ndarray:
+    """Up to ``slots`` outer iterations with the cumulative transform and
+    the reference stopping rule carried on the device (the JAX package's
+    ``_scan_convergence``, models/registration.py:205-275 there), from the
+    host's 4x4 ``t_cum`` and state ``conv0`` = (cost drop as float32, stall
+    counter, iteration). Each slot rotates ``source``, takes
+    ``associate(moved)`` (an :class:`Association`) and solves on it with
+    ``lm`` (``mesh`` serves ``lm_config.axis_name``); ``check(result,
+    association)``, when given, may replace the result. Returns one float64
+    row per slot run (columns ``_Q`` ... ``_TRACE``), fetched in one
+    transfer.
+
+    The rule is decided in float32 here and in float64 by the host
+    (``_consume_chunk``), so the threshold is shifted down by more than
+    float32's slack: the device may run a slot the host then discards,
+    never stop where the host continues. A stopped slot takes no LM step,
+    outputs the identity quaternion and zeros, and ends the chunk (its solve
+    reads done at iteration 0); its search still ran. A slot whose search
+    overflowed ends the chunk the same way, flagged. On a mesh every value
+    the loop branches on is replicated, so every rank takes the same path.
+    """
+    dev, dtype = source.device, source.dtype
+    carry = torch.as_tensor(
+        np.concatenate([np_matrix_to_quat(t_cum[:3, :3]), t_cum[:3, 3],
+                        np.array(conv0, dtype=np.float64)]),
+        device=dev,
+    )  # one upload per chunk
+    qc, tc = carry[:4].to(dtype), carry[4:7].to(dtype)
+    drop, unuseful, it = carry[7].float(), carry[8].int(), carry[9].int()
+    done = torch.zeros((), dtype=torch.bool, device=dev)
+    thresh = float(np.float32(
+        cost_drop_thresh - max(abs(cost_drop_thresh), 1.0) * 1e-5))
+    rows = []
+    for _ in range(slots):
+        low = drop < thresh
+        stop = done | (it >= n_iter) | (low & (unuseful > n_cost_drop_it))
+        unuseful = torch.where(stop, unuseful, torch.where(low, unuseful + 1, 0))
+        moved = quat_rotate_points(qc, source) + tc
+        a = associate(moved)
+        # An overflowed search's chunk is discarded: its solve takes no
+        # step either, and the chunk ends there.
+        halt = stop if a.overflow is None else stop | (a.overflow > 0)
+        res, (lm_done, lm_iterations, _) = lm.solve(
+            a.source, a.targets, a.mask, q0, t0, lm_config, frozen=halt, mesh=mesh)
+        if check is not None:
+            res = check(res, a)
+        qn = quat_normalize(res.q)
+        qc = torch.where(stop, qc, quat_multiply(qn, qc))
+        tc = torch.where(stop, tc, unit_quat_rotate(qn, tc) + res.t)
+        ic, fc = res.initial_cost.float(), res.final_cost.float()
+        drop = torch.where(
+            stop, drop,
+            torch.where(ic != 0, (ic - fc) / torch.where(ic != 0, ic, 1.0), 0.0),
+        )
+        it = torch.where(stop, it, it + 1)
+        done = stop
+        f64 = torch.float64
+        counts = [res.num_iterations, res.num_successful_steps, a.n_corr,
+                  a.overflow if a.overflow is not None else a.mask.new_zeros(())]
+        row = torch.cat([
+            res.q.to(f64), res.t.to(f64),
+            torch.stack([res.initial_cost.to(f64), res.final_cost.to(f64)]),
+            torch.stack([c.reshape(()).to(f64) for c in counts]),
+            torch.ones(1, dtype=f64, device=dev), res.trace.to(f64).reshape(-1),
+        ])
+        frozen = torch.zeros_like(row)
+        frozen[0] = 1.0  # the identity quaternion; executed = 0
+        rows.append(torch.where(stop, frozen, row))
+        if lm_done and lm_iterations == 0:
+            break  # stopped (and so would be the rest) or overflowed
+    return torch.stack(rows).cpu().numpy()
 
 
 def _stage_pool(grid: dict, tg: np.ndarray, plan: dict, params: RegistrationParams,

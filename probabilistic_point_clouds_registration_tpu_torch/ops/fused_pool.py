@@ -236,10 +236,34 @@ def _plan_segment_bands(
     return out
 
 
+def _ladder_ends(union: np.ndarray, widths: list[int]) -> list[int] | None:
+    """Bin width-sorted windows into a GIVEN descending pow2 width ladder.
+
+    Window width = pow2(union) clipped up to the ladder's narrowest class.
+    Returns the exclusive end rows (one per ladder class; empty classes
+    keep a zero-size band, so that every shard shares the ladder), or None
+    when some window is wider than the ladder's top class.
+    """
+    ud = union.shape[0]
+    w = np.maximum(
+        widths[-1],
+        1 << np.ceil(np.log2(np.maximum(union, 1))).astype(np.int64),
+    )
+    if ud and int(w[0]) > widths[0]:
+        return None
+    ends = []
+    for c in range(len(widths)):
+        nxt = widths[c + 1] if c + 1 < len(widths) else 0
+        ends.append(ud - int(np.searchsorted(w[::-1], nxt + 1, side="left")))
+    ends[-1] = ud
+    return ends
+
+
 def plan_pool_host(
     grid_host: dict,
     target: np.ndarray,
     *,
+    force: dict | None = None,
     select_max_w: int | None = None,
     device="cuda",
 ) -> dict | None:
@@ -253,6 +277,14 @@ def plan_pool_host(
     The narrow-class cutoff the class split derives from is
     ``select_max_w`` when given, else the one of ``device``
     (:func:`_select_max_w`).
+
+    ``force`` sets every static dimension of the plan to given values, so
+    that several plans share one layout (the target shards of
+    ``parallel/pool_sharded.py``): ``widths`` (the class ladder; windows are
+    then binned by pow2(union) clipped into it, :func:`_ladder_ends`),
+    ``pad_sizes`` (padded rows per class, one F=1 band each),
+    ``prod_d_pad``, ``prod_e_pad``, ``u_pad``, ``n_pad``, ``ud_b``. Each
+    must cover this scan's own size (else None).
     """
     counts_full = grid_host["cell_count"].astype(np.int64)
     dil = dilate_cells_host(grid_host, counts=counts_full)
@@ -260,9 +292,14 @@ def plan_pool_host(
         return None
     nrows = dil["nrows"]  # (UD, 27), width-sorted
     union = dil["union"]
-    widths, ends = _plan_classes(union)
-    if widths and widths[0] > MAX_CLASS_LANES:
-        return None
+    if force is None:
+        widths, ends = _plan_classes(union)
+        if widths and widths[0] > MAX_CLASS_LANES:
+            return None
+    else:
+        widths = list(force["widths"])
+        if union.size and int(union.max()) > MAX_CLASS_LANES:
+            return None
 
     n = grid_host["num_valid"]
     order = grid_host["sort_order"]
@@ -279,24 +316,31 @@ def plan_pool_host(
     # most 128 lanes costs the kernel one 128-lane pass anyway, so the
     # split stops at 128.
     smw_plan = _select_max_w(device) if select_max_w is None else select_max_w
-    w_floor = 128 if smw_plan == 0 else 8
-    w_pow2 = np.maximum(
-        w_floor,
-        1 << np.ceil(np.log2(np.maximum(union, 1))).astype(np.int64),
-    )
-    widths2, ends2 = [], []
-    prev = 0
-    for w_c, e_c in zip(widths, ends):
-        cls_w = np.minimum(w_pow2[prev:e_c], w_c)
-        s0 = 0
-        while s0 < e_c - prev:
-            sw = int(cls_w[s0])
-            s1 = int(np.searchsorted(-cls_w, -sw, side="right"))
-            widths2.append(sw)
-            ends2.append(prev + s1)
-            s0 = s1
-        prev = e_c
-    widths, ends = widths2, ends2
+    if force is None:
+        w_floor = 128 if smw_plan == 0 else 8
+        w_pow2 = np.maximum(
+            w_floor,
+            1 << np.ceil(np.log2(np.maximum(union, 1))).astype(np.int64),
+        )
+        widths2, ends2 = [], []
+        prev = 0
+        for w_c, e_c in zip(widths, ends):
+            cls_w = np.minimum(w_pow2[prev:e_c], w_c)
+            s0 = 0
+            while s0 < e_c - prev:
+                sw = int(cls_w[s0])
+                s1 = int(np.searchsorted(-cls_w, -sw, side="right"))
+                widths2.append(sw)
+                ends2.append(prev + s1)
+                s0 = s1
+            prev = e_c
+        widths, ends = widths2, ends2
+    else:
+        # A forced ladder: pure pow2 binning; empty classes keep a zero-size
+        # band so that every shard shares the class structure.
+        ends = _ladder_ends(union, widths)
+        if ends is None:
+            return None
 
     # Segment bands, with band sizes bucketed (~25%) so the shapes repeat
     # across similar scans.
@@ -308,15 +352,25 @@ def plan_pool_host(
     center = np.where(
         nrows[:, 13] >= 0, counts_pad[np.maximum(nrows[:, 13], 0)], 0
     )
-    bands_real = _plan_segment_bands(union, center, widths, ends)
-    band_layout = []  # per class: [(w_assemble, F, n_real, n_pad)]
-    for bands_c in bands_real:
-        layout = []
-        for wa, f, nb in bands_c:
-            floor = max(64, (1 << 20) // (16 * max(wa, 1)))
-            layout.append((wa, f, nb, _bucket_rows(nb, floor, 3)))
-        band_layout.append(layout)
-    pad_sizes = [sum(b[3] for b in layout) for layout in band_layout]
+    if force is None:
+        bands_real = _plan_segment_bands(union, center, widths, ends)
+        band_layout = []  # per class: [(w_assemble, F, n_real, n_pad)]
+        for bands_c in bands_real:
+            layout = []
+            for wa, f, nb in bands_c:
+                floor = max(64, (1 << 20) // (16 * max(wa, 1)))
+                layout.append((wa, f, nb, _bucket_rows(nb, floor, 3)))
+            band_layout.append(layout)
+        pad_sizes = [sum(b[3] for b in layout) for layout in band_layout]
+    else:
+        # One F=1 band per class at the forced size: the band structure
+        # depends on the scan, and the shards must share one layout.
+        pad_sizes = list(force["pad_sizes"])
+        if any(p < s for p, s in zip(pad_sizes, sizes)):
+            return None
+        band_layout = [
+            [(w, 1, s, p)] for w, s, p in zip(widths, sizes, pad_sizes)
+        ]
     ends_pad = np.cumsum(pad_sizes).tolist()
     ud_pad = int(ends_pad[-1]) if ends_pad else 0
     pool_bytes = sum(
@@ -428,11 +482,26 @@ def plan_pool_host(
     # Bucket-padded upload arrays. Sentinels: indices one past the pow2
     # scatter-table sizes (dropped), dead packed rows, and row_vals = ud_pad.
     u = int(dil["base_e"].shape[0])
-    prod_e_pad = _pow2(dil["prod_e"])
-    prod_d_pad = _pow2(dil["prod_d"])
-    u_pad = _bucket_rows(u, step_bits=3)
-    n_pad = _bucket_rows(n + 1, step_bits=3)
-    ud_b = _bucket_rows(ud, step_bits=3)
+    if force is None:
+        prod_e_pad = _pow2(dil["prod_e"])
+        prod_d_pad = _pow2(dil["prod_d"])
+        u_pad = _bucket_rows(u, step_bits=3)
+        n_pad = _bucket_rows(n + 1, step_bits=3)
+        ud_b = _bucket_rows(ud, step_bits=3)
+    else:
+        prod_e_pad = force["prod_e_pad"]
+        prod_d_pad = force["prod_d_pad"]
+        u_pad = force["u_pad"]
+        n_pad = force["n_pad"]
+        ud_b = force["ud_b"]
+        if (
+            prod_e_pad < dil["prod_e"]
+            or prod_d_pad < dil["prod_d"]
+            or u_pad < u
+            or n_pad < n + 1
+            or ud_b < ud
+        ):
+            return None
     packed_pad = np.empty((n_pad + 1, 4), np.float32)
     packed_pad[: n + 1] = packed
     packed_pad[n + 1 :, :3] = _BIG
@@ -479,6 +548,55 @@ def plan_pool_host(
         "off_e": off_e,
         "cell_size": grid_host["cell_size"],
     }
+
+
+def plan_pool_host_group(grids: list, targets: list, *, select_max_w: int | None = None,
+                         device="cuda") -> list | None:
+    """Plan several scans with ONE shared static layout (the target shards
+    of ``parallel/pool_sharded.py``): self-keyed plans first, then every
+    scan again with ``force`` statics taken as maxima over the group.
+    Returns the aligned plans, or None when any member declines the pooled
+    engine. The cutoff is ``select_max_w``, else ``device``'s.
+    """
+    kw = dict(select_max_w=select_max_w, device=device)
+    plans = []
+    for g, t in zip(grids, targets):
+        p = plan_pool_host(g, t, **kw)
+        if p is None:
+            return None
+        plans.append(p)
+    ladder = sorted({w for p in plans for w in p["widths"]}, reverse=True)
+    real = np.zeros((len(plans), len(ladder)), np.int64)
+    for i, p in enumerate(plans):
+        ends = _ladder_ends(p["dil"]["union"], ladder)
+        if ends is None:
+            return None
+        real[i] = np.diff([0] + ends)
+    force = {
+        "widths": tuple(ladder),
+        "pad_sizes": tuple(
+            int(
+                _bucket_rows(
+                    int(real[:, c].max()), max(64, (1 << 20) // (16 * w))
+                )
+            )
+            for c, w in enumerate(ladder)
+        ),
+        "prod_d_pad": max(_pow2(p["dil"]["prod_d"]) for p in plans),
+        "prod_e_pad": max(_pow2(p["dil"]["prod_e"]) for p in plans),
+        "u_pad": max(
+            _bucket_rows(int(p["dil"]["base_e"].shape[0])) for p in plans
+        ),
+        "n_pad": max(p["packed"].shape[0] - 1 for p in plans),
+        "ud_b": max(p["row_vals"].shape[0] for p in plans),
+    }
+    out = []
+    for g, t in zip(grids, targets):
+        p2 = plan_pool_host(g, t, force=force, **kw)
+        if p2 is None:  # cannot happen: the forced sizes cover every member
+            return None
+        out.append(p2)
+    return out
 
 
 def estimate_pool_demand_rows(plan: dict, source: np.ndarray,

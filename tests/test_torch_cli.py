@@ -4,7 +4,7 @@ the same argv through both pair CLIs gives the same standard output apart
 from timings (numbers printed at 6 significant digits within 1e-5) and the
 same summary file within 1e-6 (float64); the refusals and degradations are
 the JAX CLI's; the odometry CLI registers written KITTI ``.bin`` scans and
-refuses ``--mesh``. Each CLI writes into the working directory, so every
+refuses a ``--mesh`` whose size is not the world size. Each CLI writes into the working directory, so every
 test runs in its own."""
 import json
 import re
@@ -160,5 +160,5 @@ def test_odometry_cli_refuses_mesh(tmp_path, capsys):
     rc = t_cli_odo.main([str(scan_dir), "-o", str(tmp_path / "t.json"), "--mesh", "2x4",
                          "--device", "cpu"])
     assert rc == 2
-    assert "queue 1 item 6" in capsys.readouterr().out
+    assert "a 2x4 mesh needs a world of 8 ranks, this one has 1" in capsys.readouterr().out
     assert not (tmp_path / "t.json").exists()

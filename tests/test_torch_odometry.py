@@ -3,7 +3,8 @@ package's: the 4-scan sequence of tests/test_odometry.py through both
 packages (relative transforms within 1e-6 in float64 and 1e-4 in float32),
 checkpoints that either package resumes, reports that stay aligned across a
 resume, the staged target (``prepare_target(stage=True)``) equal to the
-unstaged one, and the refusals (a bool device, a mesh)."""
+unstaged one, and the refusals (a bool device, a mesh that is not a
+``parallel.Mesh``)."""
 import json
 
 import numpy as np
@@ -133,7 +134,7 @@ def test_mesh_and_missing_card_are_refused():
     import torch
 
     scans, _ = _sequence(2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(TypeError, match="pass a parallel.Mesh"):
         t_odo.run_odometry(scans, RegistrationParams(**KW), mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):

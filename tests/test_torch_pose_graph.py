@@ -189,7 +189,7 @@ def test_extra_frozen_cg_steps_change_nothing():
 
 def test_sharded_config_and_missing_card_are_refused():
     poses, edges, weights, _ = _loop(6)
-    with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+    with pytest.raises(ValueError, match="the sharded solve needs the Mesh"):
         P.optimize_pose_graph(poses, edges, weights=weights,
                               config=P.PoseGraphConfig(axis_name="points"), device="cpu")
     if not torch.cuda.is_available():
