@@ -97,9 +97,32 @@ parallel) and then, raising on the first failure:
     starved so that the ladder (x2, twice) ends on the sharded grid engine:
     B2 launches on both ranks;
 22. the 4,541-pose graph with its edges sharded over two processes
-    (``optimize_pose_graph(mesh=)``) against the pose-graph fixture.
+    (``optimize_pose_graph(mesh=)``) against the pose-graph fixture;
+23. batches of pairs (``parallel/batch.py``) on the six kitti131k scans of
+    phase 17, written as ``.bin`` files and read back: (a) on the batch's
+    initial poses, each pooled class pass as ONE launch across the five
+    pairs (their pools flattened into one table, each group's row shifted
+    by its pair's offset) through B4 and B1, bit-equal to the twin and to
+    the same passes launched pair by pair and stacked (the flattened
+    pool's largest offset printed beside int32's limit), and B2 bit-equal
+    to its twin on one flattened block of the batched grid engine (two
+    pairs' rows x 27 x 512 candidates); (b) ``run_odometry_batched`` with
+    ``auto`` (the pooled engine, B4) on the five pairs in one program,
+    twice: each pair's relative 4x4 within 1e-4 of the sequence fixture,
+    its 12 outer iterations, every iteration's correspondence count within
+    0.01% of the fixture's, 0 overflow, B4 launched once per class and loop
+    iteration, the LM blocks captured; the batch's pairs/s beside phase
+    17's, its host-prep and capture seconds; (c) ``grid`` (B2) and
+    ``brute`` on the first 3 scans (2 pairs) against the fixture's first
+    two pairs; (d) the class budgets starved: the flagged pairs redone on
+    the batched grid engine and spliced, within 1e-5 of (c)'s grid run;
+24. the batch sharded over two processes sharing the card over ``gloo``
+    (5 pairs padded to 6, 3 a rank, no collective in the loop, one
+    ``all_gather`` at the end): every rank's poses bit-identical and within
+    1e-6 of phase 23(b), B4 launched and the LM blocks captured on each
+    rank.
 
-The processes of phases 20-22 are ``tests/torch_port_mesh_worker.py``'s
+The processes of phases 20-22 and 24 are ``tests/torch_port_mesh_worker.py``'s
 (spawned after the kernels are built; a process that fails or outlives its
 time limit fails the run); their seconds on the shared card are not scaling
 numbers. The workloads of phases 16-18 come from ``tests/torch_port_fixture.py``
@@ -112,8 +135,9 @@ built with g++) loaded. Each path's launch counts are set to 0 just before
 it and read just after.
 The last two lines of standard output are a JSON line with each kernel's
 launches on the paths that run it (B1: the dense registration of step 2;
-B4: the two ``auto`` registrations and the mesh registrations of phases
-19-20, every rank's; B2: the two grid registrations and phase 21's ranks;
+B4: the two ``auto`` registrations, the mesh registrations of phases
+19-20, every rank's, and the batches of phases 23-24; B2: the two grid
+registrations, phase 21's ranks and the batched grid runs of phase 23;
 B3: the KNN-kernel registration), its time, its twin's, the library call's where
 there is one, and its bound on the same inputs (B1, B4: the class passes of
 step 3; B2: the matrices of step 7; B3: the bunny search of step 10), then
@@ -475,9 +499,10 @@ def _warm_pairs(port, torch, src, tgt, params, what: str) -> None:
           f"{1e3 * statistics.median(reg.iteration_times):.2f} ms)")
 
 
-def _entry_points(port, torch, native, synthetic, bunny_pair, counted, zero_counts) -> None:
+def _entry_points(port, torch, native, synthetic, bunny_pair, counted, zero_counts) -> list:
     """Phases 16-18: the pair CLI, sequence odometry, loop closure and the
-    pose graph, each against its JAX fixture."""
+    pose graph, each against its JAX fixture. Returns the sequence's
+    run_odometry pairs/s (the first run, then the pipelined turns)."""
     sys.path.insert(0, str(REPO / "tests"))
     import torch_port_fixture as fx
 
@@ -598,6 +623,7 @@ def _entry_points(port, torch, native, synthetic, bunny_pair, counted, zero_coun
             if not all(np.array_equal(a, b) for a, b in zip(rels, result.relative_transforms)):
                 raise AssertionError(f"kitti131k sequence ({mode}): the pairs differ from the "
                                      f"first run")
+        seq_rates = [n_pairs / seconds] + rates["pipelined"]
         print(f"kitti131k sequence pairs/s in turns (in line, pipelined, pipelined, in line; "
               f"each bit-equal to the first run): in line "
               f"{', '.join('%.4f' % r for r in rates['in line'])}; pipelined "
@@ -706,6 +732,7 @@ def _entry_points(port, torch, native, synthetic, bunny_pair, counted, zero_coun
     if (steps != pg_fx["gn_iterations"] or cost_rel > POSE_GRAPH_RTOL
             or pose_err > POSE_GRAPH_ATOL):
         raise AssertionError("pose graph: the solve disagrees with the JAX fixture")
+    return seq_rates
 
 
 MESH_ATOL = 5e-6  # a mesh run's final 4x4 against the fixture and the single-device run
@@ -870,6 +897,274 @@ def _mesh_phases(port, torch, synthetic, fixtures, pairs, counted, zero_counts, 
                 or pose_err > POSE_GRAPH_ATOL or pg["cost"] != res[0]["pose_graph"]["cost"]):
             raise AssertionError("edge-sharded pose graph: the solve disagrees")
     phase_line("phases 21-22 (1x2 ladder, edge-sharded pose graph; 2 processes)", t_phase)
+    return added
+
+
+BATCH_ATOL = 1e-6  # phase 24's ranks against phase 23's batch
+REDO_ATOL = 1e-5  # the redo splice against the grid engine's batch
+
+
+def _relative(result, n_pairs: int) -> list:
+    """Each pair's relative 4x4 of a BatchedPairResult (float64)."""
+    from probabilistic_point_clouds_registration_tpu_torch.core.se3 import np_se3_matrix
+
+    qs, ts = result.q.cpu().double().numpy(), result.t.cpu().double().numpy()
+    return [np_se3_matrix(qs[i] / np.linalg.norm(qs[i]), ts[i]) for i in range(n_pairs)]
+
+
+def _hold_batch(result, stats, want_pairs, what: str, seconds: float) -> list:
+    """A batch's pairs against the sequence fixture's: relative 4x4 within
+    TRANSFORM_ATOL, the same outer iterations, every iteration's
+    correspondence count within COUNT_RTOL. Returns the relative 4x4s."""
+    n_pairs = len(want_pairs)
+    rel = _relative(result, n_pairs)
+    errs = [float(np.abs(a - np.array(p["relative_transform"])).max())
+            for a, p in zip(rel, want_pairs)]
+    iters = [int(i) for i in result.num_iterations.cpu()[:n_pairs]]
+    counts = result.num_correspondences.cpu().numpy()
+    worst = max(abs(int(counts[i][j]) - c) / c for i, p in enumerate(want_pairs)
+                for j, c in enumerate(p["correspondences"]))
+    print(f"{what}: engine {stats['engine']}, {n_pairs / seconds:.4f} pairs/s ({seconds:.4f} s; "
+          f"host prep {stats['host_seconds']:.4f} s, LM capture {stats['capture_seconds']:.4f} s, "
+          f"{stats['graphs_captured']} shapes captured), {stats['outer_loops']} loop iterations, "
+          f"outer iterations {iters} (fixture {[p['iterations'] for p in want_pairs]}), "
+          f"relative 4x4 vs fixture {['%.3e' % e for e in errs]} (limit {TRANSFORM_ATOL}), "
+          f"worst correspondence-count diff {worst:.2e} (limit {COUNT_RTOL}), overflow "
+          f"{result.overflow.cpu().tolist()}, redone {stats.get('redone')}")
+    if (max(errs) > TRANSFORM_ATOL or worst > COUNT_RTOL
+            or iters != [p["iterations"] for p in want_pairs] or not stats["graphs_captured"]):
+        raise AssertionError(f"{what}: the batch disagrees with the sequence fixture")
+    return rel
+
+
+def _batch_flattening(torch, pb, clouds, params, counted, smi) -> None:
+    """Phase 23(a): on the batch's initial poses, each pooled class pass as
+    ONE launch across the pairs (B4 and B1) against the twin and against
+    the same passes launched pair by pair and stacked; B2 on one flattened
+    block of the batched grid engine against its twin. Its tensors die with
+    the call."""
+    from probabilistic_point_clouds_registration_tpu_torch.core.types import pad_cloud, round_up
+    from probabilistic_point_clouds_registration_tpu_torch.ops import fused_grid as fg
+    from probabilistic_point_clouds_registration_tpu_torch.ops import fused_pool as fp
+    from probabilistic_point_clouds_registration_tpu_torch.ops import grid as tgrid
+    from probabilistic_point_clouds_registration_tpu_torch.ops.select_pallas import (
+        _row_topk_plain,
+    )
+
+    select_bitonic, select_windows = counted["select_bitonic"], counted["select_windows"]
+    pallas_row_topk = counted["row_topk"]
+    k, radius = params.max_neighbours, params.radius
+    r2 = float(np.float32(radius) ** 2)
+    n_pairs = len(clouds) - 1
+    t_phase = time.perf_counter()
+    stack = np.stack([pad_cloud(c, params.pad_multiple, pad_value=0.0)[0] for c in clouds])
+    counts = np.array([c.shape[0] for c in clouds])
+    idx_src, idx_tgt = np.arange(n_pairs) + 1, np.arange(n_pairs)
+    pools = pb._batched_pools_host(stack, counts, idx_tgt, radius, k, np.float32,
+                                   idx_src=idx_src, device="cuda")
+    sources = torch.as_tensor(stack[idx_src].astype(np.float32), device="cuda")
+    sv = torch.arange(stack.shape[1], device="cuda")[None, :] < torch.as_tensor(
+        counts[idx_src], device="cuda")[:, None]
+    budget = round_up(max(pools["budget_rows"], stack.shape[1] + 4096),
+                      2 * fg.BLOCK_GROUPS * fg.GROUP)
+    search = dict(radius=radius, class_widths=pools["class_widths"],
+                  class_ends=pools["class_ends"],
+                  class_budgets=pools["class_budgets"][:-1] + (budget // fg.GROUP,),
+                  budget_rows=budget, small_unions=pools["small_unions"],
+                  select_max_w=pools["select_max_w"])
+    tables = (pools["select_xyz"], pools["pool_idx"], pools["class_width_luts"],
+              pools["lut_d"], pools["origin_d"], pools["dims_d"])
+    passes, _, _, overflow = fp.batched_class_passes(sources, sv, *tables, **search)
+    per_pair = [fp.class_passes(sources[b], sv[b], *(tuple(x[b] for x in t) for t in tables[:3]),
+                                *(t[b] for t in tables[3:]), **search)[0]
+                for b in range(n_pairs)]
+    if overflow.tolist() != [0] * n_pairs:
+        raise AssertionError(f"batch flattening check: the initial poses overflow {overflow}")
+    flat_ms = alone_ms = 0.0
+    for c, (w_c, _, args) in enumerate(passes):
+        twin = fg._select_windows_plain(*args, k=k, kp=32, r2=r2)
+        b4 = select_bitonic(*args, k=k, radius=radius)
+        b1 = select_windows(*args, k=k, radius=radius)
+        alone = [select_bitonic(*p[c][2], k=k, radius=radius) for p in per_pair]
+        stacked = (torch.cat([a[0] for a in alone]), torch.cat([a[1] for a in alone]),
+                   tuple(torch.cat([a[2][i] for a in alone]) for i in range(3)))
+        torch.cuda.synchronize()
+        what = f"batch class {w_c}: one pass over {n_pairs} pairs ({args[0].shape[0]} rows)"
+        _bit_equal(b4, twin, f"B4 {what}")
+        _bit_equal(b1, twin, f"B1 {what}")
+        _bit_equal(b4, stacked, f"B4 {what} against the pairs' own passes")
+        ms = _cuda_ms(lambda: select_bitonic(*args, k=k, radius=radius))
+        ms_alone = _cuda_ms(lambda: [select_bitonic(*p[c][2], k=k, radius=radius)
+                                     for p in per_pair])
+        flat_ms, alone_ms = flat_ms + ms, alone_ms + ms_alone
+        pool_elems = args[1].numel()
+        print(f"{what}, flattened pool ({args[1].shape[0]}, 3, {w_c}): {pool_elems} floats "
+              f"(largest offset {pool_elems - 1}, int32 max {2**31 - 1}), "
+              f"{int((twin[1] >= 0).sum())} live slots; B4 and B1 bit-equal to the twin and "
+              f"B4 to the {n_pairs} per-pair launches stacked; B4 {ms:.4f} ms in one launch, "
+              f"{ms_alone:.4f} ms in {n_pairs} (median of 20, CUDA events)")
+    print(f"batch class passes: {len(passes)} launches {flat_ms:.4f} ms against "
+          f"{len(passes) * n_pairs} launches {alone_ms:.4f} ms")
+    del pools, tables, passes, per_pair, args, twin, b4, b1, alone, stacked
+    # B2 on one flattened block of the batched grid engine (2 pairs).
+    bp, bi, luts, origins, dims, cap = pb._batched_grids_host(stack, counts, idx_tgt[:2],
+                                                              radius)
+    grid = [torch.as_tensor(x, device="cuda") for x in (bp.astype(np.float32), bi, luts,
+                                                        origins.astype(np.float32), dims)]
+    tile = tgrid.pick_source_tile(cap, pairs=2)
+    no_ids = torch.zeros(bp.shape[1], dtype=torch.int32, device="cuda")
+    d2 = torch.cat([tgrid.candidate_distances(
+        sources[b, :tile], sv[b, :tile], grid[0][b], grid[1][b], no_ids, grid[3][b],
+        grid[4][b], grid[2][b], radius=radius, capacity=cap)[0] for b in range(2)])
+    got, want = pallas_row_topk(d2, k=k), _row_topk_plain(d2, k=k)
+    torch.cuda.synchronize()
+    _equal_bits([("values", got[0], want[0]), ("indices", got[1], want[1])],
+                f"B2 batch grid block {tuple(d2.shape)}")
+    b2_ms = _cuda_ms(lambda: pallas_row_topk(d2, k=k))
+    topk_ms = _cuda_ms(lambda: torch.topk(d2, k, dim=1, largest=False))
+    bound = 1e3 * (d2.numel() * 4 + d2.shape[0] * k * 8) / HBM_BYTES_PER_S
+    print(f"B2 batch grid block: grids capacity {cap}, {bp.shape[1]} cells, LUT "
+          f"{luts.shape[1]}; one block of {tile} rows a pair x 2 pairs = {tuple(d2.shape)}, "
+          f"{int(torch.isfinite(d2).sum())} finite entries: bit-equal to the twin; B2 "
+          f"{b2_ms:.4f} ms, torch.topk {topk_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
+    print(f"phase 23(a) (batch flattening): {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
+def _batch_phases(port, torch, synthetic, counted, zero_counts, smi, seq_rates) -> dict:
+    """Phases 23-24: batches of pairs (``parallel/batch.py``) on the card.
+    Returns each kernel's launches on the batch paths (every rank's)."""
+    import gc
+
+    from probabilistic_point_clouds_registration_tpu_torch.io.kitti import load_velodyne_bin
+    from probabilistic_point_clouds_registration_tpu_torch.parallel import batch as pb
+
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_port_fixture as fx
+    import torch_port_mesh_worker as worker
+
+    added = {name: 0 for name in counted}
+    seq_fx = json.loads((DATA / "torch_port_seq_kitti131k_ref.json").read_text())
+    spec = seq_fx["sequence"]
+    params = port.RegistrationParams(**spec["params"])
+    kw = dict(k=params.max_neighbours, radius=params.radius, n_outer=params.n_iter,
+              lm_config=port.ProbabilisticRegistration._make_lm_config(params),
+              pad_multiple=params.pad_multiple, dtype=params.dtype,
+              cost_drop_thresh=params.cost_drop_thresh, n_cost_drop_it=params.n_cost_drop_it)
+    scans, _ = synthetic.kitti_sequence(spec["scans"], spec["n_points"], seed=spec["seed"])
+    with tempfile.TemporaryDirectory() as tmp:
+        # The scans as phase 17 writes and reads them (float32 .bin files).
+        paths = fx.write_velodyne_scans(Path(tmp), scans)
+        clouds = [load_velodyne_bin(path).astype(np.float64) for path in paths]
+        n_pairs = len(clouds) - 1
+
+        # -- 23(a). one launch per class across the batch, against per-pair launches --
+        _batch_flattening(torch, pb, clouds, params, counted, smi)
+
+        # -- 23(b). the main batch: five 131k pairs, auto (pooled, B4) ------------
+        batch_rates, main = [], None
+        for run in range(2):
+            stats = {}
+            zero_counts()
+            t0 = time.perf_counter()
+            poses, result = pb.run_odometry_batched(clouds, search_impl="auto", stats=stats, **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {key: fn.launches for key, fn in counted.items()}
+            batch_rates.append(n_pairs / seconds)
+            rel = _hold_batch(result, stats, seq_fx["pairs"],
+                              f"kitti131k batch of {n_pairs} pairs (auto), run {run + 1}", seconds)
+            n_classes = len(stats["class_widths"])
+            print(f"kitti131k batch run {run + 1}: classes {stats['class_widths']}, launches "
+                  f"{launches}, B4 launches per loop iteration "
+                  f"{launches['select_bitonic'] / stats['outer_loops']:.2f}")
+            if (stats["engine"] != "pool" or int(result.overflow.sum()) != 0
+                    or launches["select_bitonic"] + launches["select_windows"]
+                    != n_classes * stats["outer_loops"] or launches["select_bitonic"] < 1):
+                raise AssertionError("kitti131k batch: not on the pooled engine, overflowed, or "
+                                     "B4 launched other than once per class and iteration")
+            if run == 0:
+                added["select_bitonic"] += launches["select_bitonic"]
+                main = (poses, rel)
+        print(f"kitti131k batch pairs/s {', '.join('%.4f' % r for r in batch_rates)} against "
+              f"phase 17's sequential run_odometry in this process (first run, then the "
+              f"pipelined turns) {', '.join('%.4f' % r for r in seq_rates)}")
+
+        # -- 23(c). grid and brute force on the first 3 scans (2 pairs) -----------
+        grid_poses = None
+        for impl in ("grid", "brute"):
+            stats = {}
+            zero_counts()
+            t0 = time.perf_counter()
+            poses, result = pb.run_odometry_batched(clouds[:3], search_impl=impl, stats=stats,
+                                                    **kw)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {key: fn.launches for key, fn in counted.items()}
+            _hold_batch(result, stats, seq_fx["pairs"][:2],
+                        f"kitti131k batch, 3 scans ({impl})", seconds)
+            print(f"kitti131k batch, 3 scans ({impl}): launches {launches}")
+            if stats["engine"] != impl or (impl == "grid" and launches["row_topk"] < 1):
+                raise AssertionError(f"kitti131k batch ({impl}): engine {stats['engine']}")
+            added["row_topk"] += launches["row_topk"]
+            if impl == "grid":
+                grid_poses = poses
+
+        # -- 23(d). the redo splice: starved class budgets -> the batched grid ------
+        stats = {}
+        real = pb._batched_pools_host
+        pb._batched_pools_host = worker.starved_pools(real)
+        zero_counts()
+        try:
+            poses, result = pb.run_odometry_batched(clouds[:3], search_impl="pool", stats=stats,
+                                                    **kw)
+        finally:
+            pb._batched_pools_host = real
+        torch.cuda.synchronize()
+        launches = {key: fn.launches for key, fn in counted.items()}
+        diff = max(float(np.abs(a - b).max()) for a, b in zip(poses, grid_poses))
+        print(f"kitti131k batch, 3 scans, starved pooled budgets: overflow "
+              f"{result.overflow.cpu().tolist()}, pairs redone on the batched grid engine "
+              f"{stats['redone']}, launches {launches}, poses vs the grid run {diff:.3e} "
+              f"(limit {REDO_ATOL})")
+        if not stats["redone"] or diff > REDO_ATOL or launches["row_topk"] < 1:
+            raise AssertionError("kitti131k batch redo: no pair redone, or the splice differs "
+                                 "from the grid engine's run")
+        for key in ("select_bitonic", "row_topk"):
+            added[key] += launches[key]
+
+        # -- 24. the batch sharded: two processes sharing the card over gloo ---------
+        # The workers share the card with this process: hand its cached
+        # blocks back first.
+        del result, poses
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"before phase 24: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} "
+              f"GiB of the card")
+        t_phase = time.perf_counter()
+        with tempfile.TemporaryDirectory() as work:
+            res = worker.run_group(2, [("batch_odometry", dict(dp=2, scans=tmp, tag="batch",
+                                                                search_impl="auto", **kw))],
+                                   work, device="cuda", local_world_size=2, timeout=600)
+        runs = [r["batch"] for r in res]
+        same = all(np.array_equal(r["poses"], runs[0]["poses"]) for r in runs)
+        diff = float(np.abs(runs[0]["poses"] - np.array(main[0])).max())
+        print(f"kitti131k batch sharded over 2 processes (gloo, one card): {n_pairs} pairs "
+              f"padded to {runs[0]['result']['q'].shape[0]}, ranks' poses bit-identical {same}, "
+              f"vs phase 23(b) {diff:.3e} (limit {BATCH_ATOL}), seconds per rank "
+              f"{['%.2f' % r['seconds'] for r in runs]}, B4 launches per rank "
+              f"{[r['launches']['select_bitonic'] for r in runs]}, LM graphs captured per rank "
+              f"{[r['stats']['graphs_captured'] for r in runs]} (capture seconds "
+              f"{['%.4f' % r['stats']['capture_seconds'] for r in runs]}), overflow "
+              f"{runs[0]['result']['overflow'].tolist()}")
+        if (not same or diff > BATCH_ATOL or runs[0]["result"]["q"].shape[0] != 6
+                or any(r["launches"]["select_bitonic"] < 1 or not r["stats"]["graphs_captured"]
+                       for r in runs) or any(r["_jax_loaded"] for r in res)):
+            raise AssertionError("sharded batch: the ranks disagree, the batch differs from "
+                                 "phase 23(b), B4 did not launch or the LM was not captured")
+        for r in runs:
+            added["select_bitonic"] += r["launches"]["select_bitonic"]
+        print(f"phase 24 (batch sharded, 2 processes): {time.perf_counter() - t_phase:.1f} s "
+              f"on {smi}")
     return added
 
 
@@ -1579,15 +1874,18 @@ def main() -> None:
         raise AssertionError(f"voxel-filtered pair: engine {reg.engine}")
     _check_against_fixture(reg, final, voxel_fixture, "bunny35k voxel pool")
 
-    _entry_points(port, torch, native, synthetic, pairs["bunny35k"], counted, zero_counts)
+    seq_rates = _entry_points(port, torch, native, synthetic, pairs["bunny35k"], counted,
+                              zero_counts)
     mesh_launches = _mesh_phases(port, torch, synthetic, fixtures, pairs, counted, zero_counts,
                                  smi)
-    b1_launches += mesh_launches["select_windows"]
-    b4_launches += mesh_launches["select_bitonic"]
-    b2_launches += mesh_launches["row_topk"]
-    b3_launches += mesh_launches["brute_knn"]
+    batch_launches = _batch_phases(port, torch, synthetic, counted, zero_counts, smi, seq_rates)
+    for added in (mesh_launches, batch_launches):
+        b1_launches += added["select_windows"]
+        b4_launches += added["select_bitonic"]
+        b2_launches += added["row_topk"]
+        b3_launches += added["brute_knn"]
 
-    # -- 23. result lines ----------------------------------------------------
+    # -- result lines ----------------------------------------------------------
     select_bound = max(select_bytes_ms, select_ops_ms)
     select_by = "bytes" if select_bytes_ms >= select_ops_ms else "operations"
     measured = {

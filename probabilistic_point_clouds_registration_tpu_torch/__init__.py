@@ -27,8 +27,12 @@ closure and the pose-graph solve (``models/loop_closure.py``,
 one process per mesh device (``parallel/``): the ("points", "targets")
 mesh, the sharded brute-force, grid and pooled engines with their top-k
 merges, ``DistributedRegistration``, ``run_odometry(mesh=)`` and
-``cli_odometry.py --mesh`` under torchrun, and the edge-sharded pose graph.
-Not ported: batches of pairs (the JAX package's ``parallel/batch.py``).
+``cli_odometry.py --mesh`` under torchrun, and the edge-sharded pose graph;
+batches of pairs (``parallel/batch.py``: a sequence's pairs in one program,
+each pooled class pass and each grid block one kernel launch across the
+pairs, optionally split over the mesh). Every module and kernel of the JAX
+package has its counterpart here, ``utils/compile_cache.py`` aside (a JAX
+compilation cache).
 """
 
 from .core.params import RegistrationParams

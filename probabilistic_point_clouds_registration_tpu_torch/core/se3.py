@@ -65,12 +65,15 @@ def quat_rotate(q, v):
 
 
 def quat_rotate_points(q, pts):
-    """Rotate an (N, 3) point array by ``q`` as one (N, 3) @ (3, 3) product.
+    """Rotate an (N, 3) point array by ``q`` as one (N, 3) @ (3, 3) product
+    (with a pair axis, (B, N, 3) by (B, 4): that product for each pair).
 
     The JAX package's layout (a full-precision 3x3 contraction); TF32 is off
     (module docstring), so the product runs in full float32 on the card.
     Rounding differs from ``quat_rotate`` in the last bits.
     """
+    if q.dim() > 1:  # a pair axis: pair by pair, whatever the batch
+        return torch.stack([quat_rotate_points(qb, pb) for qb, pb in zip(q, pts)])
     m_t = quat_rotate(q, torch.eye(3, dtype=pts.dtype, device=pts.device))
     return pts @ m_t
 

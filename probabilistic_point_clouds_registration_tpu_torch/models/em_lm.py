@@ -29,6 +29,16 @@ CUDA graph once per input shape and replays it. On the CPU the step runs
 eagerly in blocks of one: a read costs nothing there, and a frozen step a
 whole E-step.
 
+A leading pair axis (``parallel/batch.py``, the JAX package's ``vmap`` of
+the solve): every function here also takes ``(B, N, ...)`` inputs with
+``(B, 4)`` / ``(B, 3)`` iterates and ``(B,)`` flags; a pair that is done
+freezes bit for bit while the others step, and a block read ends when every
+pair is finished. The E-step runs pair by pair on each pair's own rows and
+the O(1) step math as elementwise products and trailing sums, so that a
+pair's result does not depend on the batch it is in (it need not round as
+the single solve, which calls BLAS there); the single solve runs exactly
+the operations it ran before.
+
 Multi-device (``parallel/``): with ``LMConfig.axis_name`` set, the source
 rows are sharded over that mesh axis (or tuple of axes) and the E-step's 26
 moment scalars are summed across it by one ``all_reduce`` per E-step
@@ -121,6 +131,58 @@ def _residuals(q, t, source, targets):
     return targets - moved[:, None, :]
 
 
+# The pair axis. Each helper runs the single solve's own operation on
+# unbatched operands. With a leading pair axis it computes the same
+# contraction as elementwise products and one sum over the trailing,
+# contiguous contracted axes: no BLAS call, whose algorithm may change with
+# the batch, so that a pair's value does not depend on the batch it is in.
+
+
+def _contract(spec: str, *ops):
+    """``torch.einsum(spec, *ops)`` for operands with a leading pair axis
+    (small operands: the full product is formed)."""
+    ins, out = spec.split("->")
+    ins = ins.split(",")
+    summed = "".join(sorted(set("".join(ins)) - set(out)))
+    order = out + summed
+    prod = None
+    for letters, op in zip(ins, ops):
+        present = sorted(letters, key=order.index)
+        x = op.permute(0, *(1 + letters.index(c) for c in present))
+        x = x.reshape(x.shape[:1] + tuple(
+            x.shape[1 + present.index(c)] if c in letters else 1 for c in order))
+        prod = x if prod is None else prod * x
+    return prod.flatten(-len(summed)).sum(-1) if summed else prod
+
+
+def _vdot(a, b):
+    """a . b over the last axis."""
+    return a @ b if a.dim() == 1 else _contract("i,i->", a, b)
+
+
+def _mv(m, v):
+    """m @ v for a matrix m."""
+    return m @ v if m.dim() == 2 else _contract("ij,j->i", m, v)
+
+
+def _einsum(spec: str, *ops):
+    """``torch.einsum(spec, *ops)``, with a leading pair axis on every
+    operand and the output when the first operand has one."""
+    if ops[0].dim() == len(spec.split(",")[0]):
+        return torch.einsum(spec, *ops)
+    return _contract(spec, *ops)
+
+
+def _sum_last(x, n: int):
+    """Sum over the last ``n`` axes (the whole tensor when unbatched)."""
+    return torch.sum(x) if x.dim() == n else torch.sum(x, dim=tuple(range(-n, 0)))
+
+
+def _pairwise(flag, x):
+    """``flag`` (one per pair) broadcast against ``x``'s trailing axes."""
+    return flag.reshape(flag.shape + (1,) * (x.dim() - flag.dim()))
+
+
 class _Moments(NamedTuple):
     """Sufficient statistics of one E-step pass over the (N, K) table."""
 
@@ -135,27 +197,41 @@ class _Moments(NamedTuple):
 def _rotation_matrix(q, dtype):
     """M(q) with quat_rotate(q, x) == M(q) @ x (columns are the rotated
     basis vectors)."""
-    return quat_rotate(q, torch.eye(3, dtype=dtype, device=q.device)).T
+    eye = torch.eye(3, dtype=dtype, device=q.device)
+    if q.dim() == 1:
+        return quat_rotate(q, eye).T
+    return quat_rotate(q[..., None, :], eye.expand(q.shape[:-1] + (3, 3))).transpose(-1, -2)
 
 
 def _estep_moments(q, t, source, targets, mask, dof, dimension, reduce=None):
     """E-step + sufficient statistics in one (N, K) pass; ``reduce`` (a
     sum across the ranks that hold the other source rows) takes the 26
-    scalars as one vector."""
-    r = _residuals(q, t, source, targets)  # (N, K, 3)
-    e2 = torch.sum(r * r, dim=-1)
-    w = update_weights(e2, mask, dof=dof, dimension=dimension)
-    wm = torch.where(mask, w, 0.0)
-    sw = torch.sum(wm, dim=-1)  # (N,)
-    m = torch.sum(wm[..., None] * r, dim=1)  # (N, 3)
-    stats = _Moments(
-        m0=torch.sum(sw),
-        m1=sw @ source,
-        m2=torch.einsum("n,na,nb->ab", sw, source, source),
-        sm=torch.sum(m, dim=0),
-        smx=torch.einsum("na,nb->ab", m, source),
-        cost=0.5 * torch.sum(wm * e2),
-    )
+    scalars as one vector.
+
+    With a pair axis the pass runs pair by pair on each pair's own rows,
+    the single solve's operations: a sum over N x K elements splits across
+    thread blocks by how many outputs it has, so a sum over the whole
+    (B, N, K) table would round differently in a batch of another size.
+    """
+    if source.dim() == 3:
+        stats = _Moments(*(torch.stack(f) for f in zip(*(
+            _estep_moments(q[b], t[b], source[b], targets[b], mask[b], dof, dimension)
+            for b in range(source.shape[0])))))
+    else:
+        r = _residuals(q, t, source, targets)  # (N, K, 3)
+        e2 = torch.sum(r * r, dim=-1)
+        w = update_weights(e2, mask, dof=dof, dimension=dimension)
+        wm = torch.where(mask, w, 0.0)
+        sw = torch.sum(wm, dim=-1)  # (N,)
+        m = torch.sum(wm[..., None] * r, dim=1)  # (N, 3)
+        stats = _Moments(
+            m0=torch.sum(sw),
+            m1=sw @ source,
+            m2=torch.einsum("n,na,nb->ab", sw, source, source),
+            sm=torch.sum(m, dim=0),
+            smx=torch.einsum("na,nb->ab", m, source),
+            cost=0.5 * torch.sum(wm * e2),
+        )
     if reduce is None:
         return stats
     flat = reduce(torch.cat([x.reshape(-1) for x in stats]))
@@ -187,19 +263,25 @@ def _rotation_jacobian(q, dtype):
     float64 one on a 6k-point pair, this form ~1e-8.
     """
     dev = q.device
-    eye3 = torch.eye(3, dtype=dtype, device=dev).expand(4, 3, 3)
+    lead = q.shape[:-1]
+    eye3 = torch.eye(3, dtype=dtype, device=dev).expand(lead + (4, 3, 3))
     dq = torch.eye(4, dtype=dtype, device=dev)  # the four tangents, one per row
-    n = torch.linalg.vector_norm(q)
-    u = q / n
-    du = dq / n - u[None, :] * ((dq @ q) / (n * n))[:, None]  # (4, 4)
-    w, uv = u[0], u[1:].expand(4, 3, 3)
-    dw, duv = du[:, 0, None, None], du[:, None, 1:].expand(4, 3, 3)
+    if q.dim() == 1:
+        n = torch.linalg.vector_norm(q)
+        u = q / n
+        du = dq / n - u[None, :] * ((dq @ q) / (n * n))[:, None]  # (4, 4)
+    else:  # per pair; dq @ q is q itself
+        n = torch.linalg.vector_norm(q, dim=-1, keepdim=True)
+        u = q / n
+        du = dq / n[..., None] - u[..., None, :] * (q / (n * n))[..., :, None]
+    w, uv = u[..., 0, None, None, None], u[..., None, None, 1:].expand(lead + (4, 3, 3))
+    dw, duv = du[..., :, 0, None, None], du[..., :, None, 1:].expand(lead + (4, 3, 3))
     c1 = torch.linalg.cross(uv, eye3)  # u_v x e_j, row j
     d_c1 = torch.linalg.cross(duv, eye3)
     d_mt = 2.0 * (
         dw * c1 + w * d_c1 + torch.linalg.cross(duv, c1) + torch.linalg.cross(uv, d_c1)
-    )  # (a, j, c) = dM[c, j]/dq_a
-    return d_mt.permute(2, 1, 0)
+    )  # (..., a, j, c) = dM[c, j]/dq_a
+    return d_mt.transpose(-3, -1)
 
 
 def _normal_from_moments(q, stats: _Moments, dtype):
@@ -210,14 +292,15 @@ def _normal_from_moments(q, stats: _Moments, dtype):
       H_qt[a,b] = J[b,d,a] m1[d]
       g_q[a]    = -J[c,d,a] smx[c,d]
     """
-    J = _rotation_jacobian(q, dtype)  # (3, 3, 4)
-    h_qq = torch.einsum("cda,ceb,de->ab", J, J, stats.m2)
-    h_qt = torch.einsum("bda,d->ab", J, stats.m1)  # (4, 3)
-    h_tt = stats.m0 * torch.eye(3, dtype=dtype, device=q.device)
+    J = _rotation_jacobian(q, dtype)  # ([B,] 3, 3, 4)
+    h_qq = _einsum("cda,ceb,de->ab", J, J, stats.m2)
+    h_qt = _einsum("bda,d->ab", J, stats.m1)  # ([B,] 4, 3)
+    h_tt = stats.m0[..., None, None] * torch.eye(3, dtype=dtype, device=q.device)
     H = torch.cat(
-        [torch.cat([h_qq, h_qt], dim=1), torch.cat([h_qt.T, h_tt], dim=1)], dim=0
+        [torch.cat([h_qq, h_qt], dim=-1), torch.cat([h_qt.transpose(-1, -2), h_tt], dim=-1)],
+        dim=-2,
     )
-    g = torch.cat([-torch.einsum("cda,cd->a", J, stats.smx), -stats.sm])
+    g = torch.cat([-_einsum("cda,cd->a", J, stats.smx), -stats.sm], dim=-1)
     return H, g
 
 
@@ -227,21 +310,22 @@ def _cost_change_from_moments(q, t, q_new, t_new, stats: _Moments, dtype):
       cost_change = sum_i m_i.d_i - 0.5 sum_i sw_i |d_i|^2.
     """
     dM = _rotation_matrix(q_new, dtype) - _rotation_matrix(q, dtype)
+    dmtdm = dM.T @ dM if dM.dim() == 2 else _contract("ca,cb->ab", dM, dM)
     dt = t_new - t
-    dm = torch.sum(dM * stats.smx) + dt @ stats.sm
+    dm = _sum_last(dM * stats.smx, 2) + _vdot(dt, stats.sm)
     swd2 = (
-        torch.sum((dM.T @ dM) * stats.m2)
-        + 2.0 * dt @ (dM @ stats.m1)
-        + stats.m0 * (dt @ dt)
+        _sum_last(dmtdm * stats.m2, 2)
+        + _vdot(2.0 * dt, _mv(dM, stats.m1))
+        + stats.m0 * _vdot(dt, dt)
     )
     return dm - 0.5 * swd2
 
 
 def _solve_lu(a, b):
-    """x with a @ x = b for a small square ``a``: LU with partial pivoting
-    written as tensor ops, so that it needs no host sync and no library
-    call and a CUDA graph can hold it (the JAX package calls
-    ``jnp.linalg.solve``, LAPACK's getrf + getrs on the CPU).
+    """x with a @ x = b for a small square ``a``, or for each of a stack of
+    them: LU with partial pivoting written as tensor ops, so that it needs
+    no host sync and no library call and a CUDA graph can hold it (the JAX
+    package calls ``jnp.linalg.solve``, LAPACK's getrf + getrs on the CPU).
 
     The order of operations is LAPACK's unblocked one: pivot on the first
     largest |a_ij| of the column, scale by the pivot's reciprocal, rank-1
@@ -249,43 +333,47 @@ def _solve_lu(a, b):
     substitution), then column-oriented back substitution. A zero pivot
     gives a non-finite x, which the caller rejects as the reference does.
     """
-    n = a.shape[0]
-    m = torch.cat([a, b[:, None]], dim=1)
+    n = a.shape[-1]
+    m = torch.cat([a, b[..., None]], dim=-1)
     rows = torch.arange(n, device=a.device)
     for j in range(n - 1):
-        p = torch.argmax(m[j:, j].abs()) + j
-        m = m[torch.where(rows == j, p, torch.where(rows == p, j, rows))]
-        lower = m[j + 1:, j] * (1.0 / m[j, j])
-        m = torch.cat([m[: j + 1], m[j + 1:] - lower[:, None] * m[j : j + 1]])
-    y = m[:, n]
+        p = torch.argmax(m[..., j:, j].abs(), dim=-1, keepdim=True) + j
+        swap = torch.where(rows == j, p, torch.where(rows == p, j, rows))
+        m = torch.gather(m, -2, swap[..., None].expand(m.shape))
+        lower = m[..., j + 1:, j] * (1.0 / m[..., j, j, None])
+        m = torch.cat([m[..., : j + 1, :], m[..., j + 1:, :] - lower[..., None] * m[..., j : j + 1, :]],
+                      dim=-2)
+    y = m[..., n]
     x = [None] * n
     for j in reversed(range(n)):
-        x[j] = y[j] / m[j, j]
-        y = y[:j] - x[j] * m[:j, j]
-    return torch.stack(x)
+        x[j] = y[..., j] / m[..., j, j]
+        y = y[..., :j] - x[j][..., None] * m[..., :j, j]
+    return torch.stack(x, dim=-1)
 
 
 def lm_init(source, targets, mask, q0, t0, config: LMConfig, frozen=None, mesh=None):
     """The solve's state before its first step, and its initial cost (the
     weight callback's first E-step, iteration.hpp:49).
 
-    ``frozen`` (0-d bool tensor) starts the state done: no step moves it.
-    ``mesh`` serves ``config.axis_name``.
+    ``frozen`` (a bool tensor, one per pair) starts the state done: no
+    step moves it. ``mesh`` serves ``config.axis_name``. With a pair axis,
+    ``q0`` / ``t0`` are (B, 4) / (B, 3).
     """
     dtype = source.dtype
     initial_cost = _estep_moments(
         q0, t0, source, targets, mask, config.dof, config.dimension,
         _reducer(config, mesh),
     ).cost
-    zero = initial_cost.new_zeros(())
-    izero = torch.zeros((), dtype=torch.int32, device=source.device)
-    done = torch.zeros((), dtype=torch.bool, device=source.device)
+    lead = initial_cost.shape
+    zero = initial_cost.new_zeros(lead)
+    izero = torch.zeros(lead, dtype=torch.int32, device=source.device)
+    done = torch.zeros(lead, dtype=torch.bool, device=source.device)
     state = LMState(
         q=q0.to(dtype),
         t=t0.to(dtype),
         cost=initial_cost,
-        radius=initial_cost.new_full((), config.initial_radius),
-        decrease_factor=initial_cost.new_full((), 2.0),
+        radius=initial_cost.new_full(lead, config.initial_radius),
+        decrease_factor=initial_cost.new_full(lead, 2.0),
         iteration=izero,
         num_successful=izero + 1,  # Ceres counts iteration 0
         done=done if frozen is None else done | frozen,
@@ -296,7 +384,7 @@ def lm_init(source, targets, mask, q0, t0, config: LMConfig, frozen=None, mesh=N
         acc_candidate_mcc=zero,
         num_nonmonotonic=izero,
         trace=initial_cost.new_zeros(
-            (config.max_iterations if config.trace else 0, 4)
+            lead + (config.max_iterations if config.trace else 0, 4)
         ),
     )
     return state, initial_cost
@@ -306,7 +394,8 @@ def lm_step(s: LMState, source, targets, mask, config: LMConfig, mesh=None) -> L
     """One LM iteration (the body of the JAX package's ``while_loop``,
     models/em_lm.py:319-432 there) on a fixed-shape state. A state that is
     done, or has run ``max_iterations`` steps, comes back unchanged, bit
-    for bit: every field is ``torch.where(live, new, old)``."""
+    for bit: every field is ``torch.where(live, new, old)``, per pair with
+    a pair axis."""
     dtype = source.dtype
     live = ~s.done & (s.iteration < config.max_iterations)
     # E-step at the current iterate; everything below is O(1) in N.
@@ -320,20 +409,21 @@ def lm_step(s: LMState, source, targets, mask, config: LMConfig, mesh=None) -> L
     # rounding (in another order than LAPACK's) moved the kitti131k bench
     # pair's final 4x4 7.7e-6 from the JAX fixture, in float64 1.9e-6
     # (PERF.md, section 6).
-    diag = torch.clamp(torch.diagonal(H), config.min_lm_diagonal, config.max_lm_diagonal)
-    damped = H + torch.diag(diag / s.radius)
+    diag = torch.clamp(torch.diagonal(H, dim1=-2, dim2=-1), config.min_lm_diagonal,
+                       config.max_lm_diagonal)
+    damped = H + torch.diag_embed(diag / s.radius[..., None])
     delta = _solve_lu(damped.double(), -g.double()).to(dtype)
-    delta_finite = torch.all(torch.isfinite(delta))
+    delta_finite = torch.all(torch.isfinite(delta), dim=-1)
     step_ok = delta_finite
-    delta = torch.where(step_ok, delta, 0.0)
+    delta = torch.where(step_ok[..., None], delta, 0.0)
 
-    q_new = s.q + delta[:4]
-    t_new = s.t + delta[4:]
+    q_new = s.q + delta[..., :4]
+    t_new = s.t + delta[..., 4:]
     cost_change_fwd = _cost_change_from_moments(s.q, s.t, q_new, t_new, st, dtype)
     cand = cost - cost_change_fwd
 
     # Model cost change m(0) - m(delta) = -(g.d + 0.5 d^T H d).
-    model_cost_change = -(g @ delta + 0.5 * delta @ (H @ delta))
+    model_cost_change = -(_vdot(g, delta) + _vdot(0.5 * delta, _mv(H, delta)))
     step_ok = step_ok & (model_cost_change > 0) & torch.isfinite(cand)
 
     relative_decrease = cost_change_fwd / model_cost_change
@@ -374,22 +464,23 @@ def lm_step(s: LMState, source, targets, mask, config: LMConfig, mesh=None) -> L
     # tolerance on every valid step (Ceres tests the candidate x before
     # acceptance); a dead trust region; a non-finite cost.
     ftol_hit = accepted & (torch.abs(cost_change_fwd) <= config.function_tolerance * cost)
-    x_norm = torch.sqrt(s.q @ s.q + s.t @ s.t)
+    x_norm = torch.sqrt(_vdot(s.q, s.q) + _vdot(s.t, s.t))
     xtol = config.parameter_tolerance
-    xtol_hit = delta_finite & (torch.sqrt(delta @ delta) <= xtol * (x_norm + xtol))
+    xtol_hit = delta_finite & (torch.sqrt(_vdot(delta, delta)) <= xtol * (x_norm + xtol))
     done = (
         ftol_hit | xtol_hit | (radius < _MIN_TRUST_REGION_RADIUS) | ~torch.isfinite(new_cost)
     )
 
     trace = s.trace
     if config.trace:
-        row = torch.stack([new_cost, step_quality, radius, accepted.to(dtype)])
+        row = torch.stack([new_cost, step_quality, radius, accepted.to(dtype)], dim=-1)
         slot = torch.clamp(s.iteration, max=config.max_iterations - 1).long()
-        trace = trace.index_copy(0, slot.view(1), row.view(1, 4))
+        trace = trace.scatter(-2, slot[..., None, None].expand(row.shape[:-1] + (1, 4)),
+                              row[..., None, :])
 
     new = LMState(
-        q=torch.where(accepted, q_new, s.q),
-        t=torch.where(accepted, t_new, s.t),
+        q=torch.where(accepted[..., None], q_new, s.q),
+        t=torch.where(accepted[..., None], t_new, s.t),
         cost=new_cost,
         radius=radius,
         decrease_factor=decrease_factor,
@@ -404,12 +495,12 @@ def lm_step(s: LMState, source, targets, mask, config: LMConfig, mesh=None) -> L
         num_nonmonotonic=num_nm,
         trace=trace,
     )
-    return LMState(*(torch.where(live, a, b) for a, b in zip(new, s)))
+    return LMState(*(torch.where(_pairwise(live, a), a, b) for a, b in zip(new, s)))
 
 
 def _status(s: LMState) -> torch.Tensor:
-    """(done, iteration, num_successful) as one int32 tensor: what a block
-    read brings to the host."""
+    """(done, iteration, num_successful) as one int32 tensor (3, [B]): what
+    a block read brings to the host."""
     return torch.stack([s.done.to(torch.int32), s.iteration, s.num_successful])
 
 
@@ -496,8 +587,10 @@ class LMBlocks:
     captured: such a caller builds its blocks with ``graphs=False``.
 
     :meth:`solve` returns the result and the solve's last read: (done,
-    iteration, num_successful) as ints. A solve that was frozen from the
-    start reads done with iteration 0 (a live step always counts).
+    iteration, num_successful) as ints, as lists of ints with a pair axis;
+    a batched solve's block read ends it when every pair is finished. A
+    solve that was frozen from the start reads done with iteration 0 (a
+    live step always counts).
     ``capture_seconds`` sums the host time spent capturing.
     """
 
@@ -524,7 +617,10 @@ class LMBlocks:
             return tuple(status.tolist())
 
         def finished(status):
-            return bool(status[0]) or status[1] >= config.max_iterations
+            done, iteration = status[0], status[1]
+            if isinstance(done, list):  # a pair axis
+                return all(d or i >= config.max_iterations for d, i in zip(done, iteration))
+            return bool(done) or iteration >= config.max_iterations
 
         if not self.graphs:
             state, initial_cost = lm_init(source, targets, mask, q0, t0, config, frozen, mesh)
@@ -535,7 +631,7 @@ class LMBlocks:
                 status = read(_status(state))
             return _result(state, initial_cost), status
         if frozen is None:
-            frozen = torch.zeros((), dtype=torch.bool, device=source.device)
+            frozen = torch.zeros(source.shape[:-2], dtype=torch.bool, device=source.device)
         inputs = (source, targets, mask, q0.to(source.dtype), t0.to(source.dtype), frozen)
         key = (config, id(mesh)) + tuple((x.shape, x.dtype, x.device) for x in inputs)
         graphs = self._captured.get(key)

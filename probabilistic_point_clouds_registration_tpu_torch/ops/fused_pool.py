@@ -42,7 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.types import bucket_rows as _bucket_rows, pow2 as _pow2, round_up
+from ..core.types import Correspondences, bucket_rows as _bucket_rows, pow2 as _pow2, round_up
 from .fused_grid import (
     BLOCK_GROUPS,
     GROUP,
@@ -1181,3 +1181,89 @@ def class_passes(source, source_valid, select_xyz, pool_idx, class_width_luts,
             overflow = overflow + (step_rows[b_c] < e_c).to(overflow.dtype)
         prev_end = e_c
     return passes, order, dst, overflow
+
+
+# -- a batch of pairs (parallel/batch.py) -------------------------------------
+
+
+def batched_class_passes(sources, source_valid, select_xyz, pool_idx, class_width_luts,
+                         lut_d, origin_d, dims_d, *, radius: float, class_widths: tuple,
+                         class_ends: tuple, class_budgets: tuple, budget_rows: int,
+                         small_unions: bool = False, select_max_w: int):
+    """:func:`class_passes` for B pairs whose pools share one static layout
+    (:func:`plan_pool_host_group`): every pair has the same class widths,
+    class ends and budgets, so its class pass c has the same row count.
+
+    ``sources`` (B, N, 3), ``source_valid`` (B, N); per class c,
+    ``select_xyz[c]`` (B, R_c + 1, 3, W_c), ``pool_idx[c]`` (B, R_c + 1, W_c)
+    and ``class_width_luts[c]`` (B, R_c + 1), contiguous; ``lut_d`` (B, P),
+    ``origin_d`` / ``dims_d`` (B, 3).
+
+    The grouping and the coverage flag run per pair. Class pass c of the
+    batch is then ONE set of select inputs, the JAX package's ``vmap`` of
+    the class select written out: the pairs' pools and width tables viewed
+    as one table of B (R_c + 1) rows (pair b's rows from b (R_c + 1), its
+    dead row included), the pairs' padded rows stacked, and each group's
+    class-local row shifted by its pair's offset. The selected ids stay
+    pair-local: each pair's ``pool_idx`` holds its own target's ids.
+
+    Returns (passes, orders, dsts, overflow): ``passes[c]`` is (W_c, B_c,
+    select inputs over B * B_c groups), ``orders`` / ``dsts`` each pair's
+    unsort maps, ``overflow`` (B,) each pair's count.
+    """
+    n_pairs = sources.shape[0]
+    per_pair = [
+        class_passes(
+            sources[b], source_valid[b], [x[b] for x in select_xyz], [x[b] for x in pool_idx],
+            [x[b] for x in class_width_luts], lut_d[b], origin_d[b], dims_d[b],
+            radius=radius, class_widths=class_widths, class_ends=class_ends,
+            class_budgets=class_budgets, budget_rows=budget_rows,
+            small_unions=small_unions, select_max_w=select_max_w,
+        )
+        for b in range(n_pairs)
+    ]
+    passes = []
+    for c, w_c in enumerate(class_widths):
+        b_c = per_pair[0][0][c][1]
+        n_c = select_xyz[c].shape[1]  # R_c + 1 rows a pair
+        padded = torch.cat([p[0][c][2][0] for p in per_pair])
+        rows = torch.cat([p[0][c][2][3] + b * n_c for b, p in enumerate(per_pair)])
+        passes.append((w_c, b_c, (
+            padded, select_xyz[c].view(n_pairs * n_c, 3, -1),
+            pool_idx[c].view(n_pairs * n_c, -1), rows, class_width_luts[c].view(-1),
+        )))
+    overflow = torch.stack([p[3] for p in per_pair])
+    return passes, [p[1] for p in per_pair], [p[2] for p in per_pair], overflow
+
+
+def batched_fused_pool_search(sources, source_valid, select_xyz, pool_idx, class_width_luts,
+                              lut_d, origin_d, dims_d, *, k: int, radius: float,
+                              class_widths: tuple, class_ends: tuple, class_budgets: tuple,
+                              budget_rows: int, small_unions: bool = False,
+                              select_max_w: int | None = None):
+    """:func:`fused_pool_search` over B pairs (arguments as
+    :func:`batched_class_passes`): each class pass is one select launch
+    across every pair of the batch.
+
+    Returns (Correspondences (B, N, k), overflow (B,), points (B, N, k, 3)).
+    """
+    smw = _select_max_w(sources.device) if select_max_w is None else select_max_w
+    n_pairs, n = sources.shape[:2]
+    passes, orders, dsts, overflow = batched_class_passes(
+        sources, source_valid, select_xyz, pool_idx, class_width_luts, lut_d, origin_d,
+        dims_d, radius=radius, class_widths=class_widths, class_ends=class_ends,
+        class_budgets=class_budgets, budget_rows=budget_rows, small_unions=small_unions,
+        select_max_w=smw,
+    )
+    outs = [(b_c, class_select(w_c, k, smw)(*args, k=k, radius=radius))
+            for w_c, b_c, args in passes]
+    results = []
+    for b in range(n_pairs):
+        # Pair b's rows of each pass's outputs (views: the overlay writes
+        # into the last class's rows of this pair only).
+        mine = [(b_c, tuple(x.view(n_pairs, -1, x.shape[-1])[b] for x in (outd, outi))
+                 + (tuple(p.view(n_pairs, -1, p.shape[-1])[b] for p in planes),))
+                for b_c, (outd, outi, planes) in outs]
+        results.append(overlay_classes(mine, orders[b], dsts[b], k=k, n=n, dtype=sources.dtype))
+    corr = Correspondences(*(torch.stack(f) for f in zip(*(c for c, _ in results))))
+    return corr, overflow, torch.stack([p for _, p in results])

@@ -488,19 +488,93 @@ def grid_radius_search(
 SOURCE_TILE_BUDGET_BYTES = 1024 * 1024 * 1024
 
 
-def pick_source_tile(capacity: int, budget_bytes: int | None = None) -> int:
+def pick_source_tile(capacity: int, budget_bytes: int | None = None, pairs: int = 1) -> int:
     """Source-block size keeping the (S, 27 * capacity) candidate buffers
     (points gather + distances, ~16 B/candidate) within ``budget_bytes``
-    (default: ``SOURCE_TILE_BUDGET_BYTES``), between 64 and 16,384 rows.
+    (default: ``SOURCE_TILE_BUDGET_BYTES``), between 64 and 16,384 rows;
+    with ``pairs`` > 1, rows a pair of a batch whose blocks stack that many
+    pairs' rows (:func:`batched_grid_radius_search`).
 
     The block size changes no output, only how many blocks (and so how many
     rounds of small launches) one search takes."""
     if budget_bytes is None:
         budget_bytes = SOURCE_TILE_BUDGET_BYTES
-    per_row = 27 * capacity * 16
+    per_row = 27 * capacity * 16 * pairs
     tile = budget_bytes // max(per_row, 1)
     tile = max(64, min(16384, tile))
     return (tile // 64) * 64
+
+
+def batched_grid_radius_search(
+    sources: torch.Tensor,
+    bucket_pts: torch.Tensor,
+    bucket_idx: torch.Tensor,
+    luts: torch.Tensor,
+    origins: torch.Tensor,
+    dims: torch.Tensor,
+    *,
+    k: int,
+    radius: float,
+    capacity: int,
+    source_valid: torch.Tensor,
+    source_tile: int,
+    select_impl: str = "auto",
+    return_points: bool = False,
+):
+    """:func:`grid_radius_search` over B pairs, each against its own grid
+    (the JAX package's batched grid engine, ``vmap`` of the search): sources
+    (B, N, 3), ``source_valid`` (B, N), grids padded to one capacity and
+    cell count, (B, U, capacity, 3) / (B, U, capacity), dense cell tables
+    ``luts`` (B, L), ``origins`` / ``dims`` (B, 3).
+
+    Per block of ``source_tile`` rows a pair, the pairs' (S, 27 * capacity)
+    candidate distances stack into one (B * S, 27 * capacity) matrix, so
+    that the k-selection is ONE launch across the batch (B2 on a CUDA
+    device; ``select_impl`` as in :func:`grid_radius_search`), then each
+    pair gathers its own ids. Returns Correspondences (B, N, k) [and the
+    neighbors' coordinates (B, N, k, 3)].
+    """
+    if select_impl == "auto":
+        select_impl = "pallas" if sources.device.type == "cuda" else "topk"
+    n_pairs, n = sources.shape[:2]
+    sval = source_valid.bool()
+    no_ids = torch.zeros(bucket_idx.shape[1], dtype=torch.int32, device=sources.device)
+
+    def search_block(s0):
+        cands = [
+            candidate_distances(
+                sources[b, s0:s0 + source_tile], sval[b, s0:s0 + source_tile], bucket_pts[b],
+                bucket_idx[b], no_ids, origins[b], dims[b], luts[b], radius=radius,
+                capacity=capacity,
+            )
+            for b in range(n_pairs)
+        ]
+        d2 = torch.cat([d for d, _, _ in cands])  # (B * S, 27 * capacity)
+        if select_impl == "pallas":
+            from .select_pallas import pallas_row_topk
+
+            best_d, args_ = pallas_row_topk(d2, k=k)
+        else:
+            best_d, args_ = _stable_topk(d2, k)
+        best_d = best_d.view(n_pairs, -1, k)
+        args_ = args_.long().view(n_pairs, -1, k)
+        found = torch.isfinite(best_d)
+        best_idx = torch.stack([torch.gather(i, 1, a) for (_, i, _), a in zip(cands, args_)])
+        out = (torch.where(found, best_idx, 0), best_d, found)
+        if return_points:
+            best_pts = torch.stack([torch.gather(p, 1, a[..., None].expand(-1, -1, 3))
+                                    for (_, _, p), a in zip(cands, args_)])
+            out = out + (torch.where(found[..., None], best_pts, 0.0),)
+        return out
+
+    blocks = [search_block(s0) for s0 in range(0, max(n, 1), source_tile)]
+    outs = tuple(parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+                 for parts in zip(*blocks))
+    idx, d2, found = outs[:3]
+    corr = Correspondences(indices=idx, sq_dists=torch.where(found, d2, 0.0), mask=found)
+    if return_points:
+        return corr, outs[3]
+    return corr
 
 
 def grid_search(grid: HashGrid, source, *, k: int, radius: float, source_valid,

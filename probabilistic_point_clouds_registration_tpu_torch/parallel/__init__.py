@@ -1,8 +1,9 @@
 """Multi-device execution on ``torch.distributed`` (port of the JAX
 package's ``parallel/``): one process per mesh device, a process group per
 mesh axis (``mesh.py``), the sharded brute-force, grid and pooled engines,
-the top-k merges, and ``DistributedRegistration``. The JAX package's
-``batch.py`` (batches of pairs under ``vmap``) is not ported yet."""
+the top-k merges, and ``DistributedRegistration``. Batches of pairs
+(``batch.py``: ``run_odometry_batched`` and the batched engines) are
+imported from their module, as in the JAX package."""
 from .mesh import (
     POINTS_AXIS,
     TARGETS_AXIS,

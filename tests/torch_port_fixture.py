@@ -285,22 +285,38 @@ def _sequence_fixture() -> dict:
 
     from probabilistic_point_clouds_registration_tpu.core.params import RegistrationParams
     from probabilistic_point_clouds_registration_tpu.io.kitti import list_velodyne_scans
-    from probabilistic_point_clouds_registration_tpu.models.odometry import run_odometry
+    from probabilistic_point_clouds_registration_tpu.models import odometry
     from probabilistic_point_clouds_registration_tpu_torch.io import synthetic
 
     spec = SEQUENCE
     scans, _ = synthetic.kitti_sequence(spec["scans"], spec["n_points"], seed=spec["seed"])
+    # Each pair's per-iteration correspondence counts (the reports do not
+    # carry them): the registrations run_odometry makes, recorded as they
+    # finish.
+    counts = []
+
+    class Recorded(odometry.ProbabilisticRegistration):
+        def align(self):
+            final = super().align()
+            counts.append([r.num_correspondences for r in self.records])
+            return final
+
     with tempfile.TemporaryDirectory() as tmp:
         write_velodyne_scans(Path(tmp), scans)
         # The JAX package's one-iteration host loop on its grid engine.
         params = RegistrationParams(**{**spec["params"], "outer_chunk": 1}, search_impl="grid")
-        result = run_odometry(list_velodyne_scans(tmp), params)
+        real, odometry.ProbabilisticRegistration = odometry.ProbabilisticRegistration, Recorded
+        try:
+            result = odometry.run_odometry(list_velodyne_scans(tmp), params)
+        finally:
+            odometry.ProbabilisticRegistration = real
     pairs = []
-    for t_rel, report in zip(result.relative_transforms, result.reports):
+    for t_rel, report, n_corr in zip(result.relative_transforms, result.reports, counts):
         rows = [line.split(", ") for line in report.splitlines()[1:]]
         pairs.append({"relative_transform": np.asarray(t_rel).tolist(),
                       "iterations": len(rows),
-                      "final_cost": float(rows[-1][3])})
+                      "final_cost": float(rows[-1][3]),
+                      "correspondences": [int(c) for c in n_corr]})
     return {"sequence": spec, "pairs": pairs, "inner_cap_hits": result.inner_cap_hits}
 
 

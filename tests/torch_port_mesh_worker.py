@@ -104,6 +104,40 @@ def world_sequence(n_scans: int = 4, n: int = 3000, seed: int = 11):
     return scans
 
 
+def wave_sequence(n_scans: int = 5):
+    """tests/test_batch.py's wave-grid sequence: a sensor turning 0.04 rad
+    and moving (0.12, -0.04, 0.02) a step. Returns the scans."""
+    from probabilistic_point_clouds_registration_tpu_torch.io.synthetic import wave_grid
+
+    world = wave_grid()
+    th = 0.04
+    rot = np.array([[np.cos(th), -np.sin(th), 0], [np.sin(th), np.cos(th), 0], [0, 0, 1.0]])
+    delta = np.eye(4)
+    delta[:3, :3] = rot
+    delta[:3, 3] = [0.12, -0.04, 0.02]
+    scans, pose = [], np.eye(4)
+    for _ in range(n_scans):
+        inv = np.linalg.inv(pose)
+        scans.append(world @ inv[:3, :3].T + inv[:3, 3])
+        pose = pose @ delta
+    return scans
+
+
+def starved_pools(real):
+    """A batch's pool preparation (``parallel/batch.py::_batched_pools_host``
+    of either package) with every non-last class's group budget at 16, so
+    that the runtime coverage flag fires (the coverage check exists for
+    non-last classes only): tests/test_batch.py's starved redo."""
+
+    def strangled(*args, **kwargs):
+        pools = real(*args, **kwargs)
+        pools["class_budgets"] = (16,) * (len(pools["class_budgets"]) - 1) + (
+            pools["class_budgets"][-1],)
+        return pools
+
+    return strangled
+
+
 def loop_graph(n: int = 40, seed: int = 0, closure_weight: float = 50.0):
     """A drifted circle of ``n`` poses with one exact closure (the port's
     tests/test_torch_pose_graph.py ``_loop``): (poses, edges, weights)."""
@@ -460,6 +494,39 @@ def odometry(device, dp: int, tp: int, workdir: str):
                                                          for r in result.reports],
             "resumed": np.array(resumed.poses), "redone": redone,
             "checkpoint_written": ck.exists()}
+
+
+@case
+def batch_odometry(device, dp: int, scans, **kw):
+    """run_odometry_batched on a dp x 1 mesh: ``scans`` is a directory of
+    KITTI ``.bin`` scans, or the scan count of :func:`wave_sequence`; ``kw``
+    its keyword arguments. Returns the poses, the result's fields, its
+    stats and the kernel launches."""
+    from probabilistic_point_clouds_registration_tpu_torch.io.kitti import (
+        list_velodyne_scans,
+        load_velodyne_bin,
+    )
+    from probabilistic_point_clouds_registration_tpu_torch.parallel import make_mesh
+    from probabilistic_point_clouds_registration_tpu_torch.parallel.batch import (
+        run_odometry_batched,
+    )
+
+    if isinstance(scans, int):
+        clouds = wave_sequence(scans)
+    else:
+        clouds = [load_velodyne_bin(p).astype(np.float64) for p in list_velodyne_scans(scans)]
+    mesh = make_mesh(dp, 1, device=device)
+    counters = _launch_counters()
+    _sync(device)
+    for fn in counters.values():
+        fn.launches = 0
+    stats = {}
+    t0 = time.perf_counter()
+    poses, result = run_odometry_batched(clouds, mesh=mesh, stats=stats, **kw)
+    _sync(device)
+    return {"poses": np.array(poses), "seconds": time.perf_counter() - t0, "stats": stats,
+            "result": {name: _np(x) for name, x in result._asdict().items()},
+            "launches": {key: fn.launches for key, fn in counters.items()}}
 
 
 @case
