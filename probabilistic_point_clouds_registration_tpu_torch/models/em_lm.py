@@ -48,13 +48,13 @@ explicitly (``mesh=``); without an axis nothing changes.
 """
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import torch
 
 from ..core.se3 import quat_rotate, quat_rotate_points
 from ..ops.weights import update_weights
+from ..utils import spans
 
 _MAX_TRUST_REGION_RADIUS = 1e16
 _MIN_TRUST_REGION_RADIUS = 1e-32
@@ -614,7 +614,8 @@ class LMBlocks:
         every rank, and so is every read."""
 
         def read(status):  # one device-to-host copy
-            return tuple(status.tolist())
+            with spans.span("lm_read"):
+                return tuple(status.tolist())
 
         def finished(status):
             done, iteration = status[0], status[1]
@@ -636,9 +637,9 @@ class LMBlocks:
         key = (config, id(mesh)) + tuple((x.shape, x.dtype, x.device) for x in inputs)
         graphs = self._captured.get(key)
         if graphs is None:
-            start = time.perf_counter()
-            graphs = self._captured[key] = _Graphs(*inputs, config, mesh)
-            self.capture_seconds += time.perf_counter() - start
+            with spans.span("lm_capture") as capture:
+                graphs = self._captured[key] = _Graphs(*inputs, config, mesh)
+            self.capture_seconds += capture.seconds
         for buf, value in zip(graphs.inputs, inputs):
             buf.copy_(value)
         graphs.init.replay()

@@ -24,7 +24,6 @@ order). Only rank 0 prints and writes the checkpoint.
 from __future__ import annotations
 
 import json
-import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -33,6 +32,7 @@ from typing import Callable, List, Optional, Sequence, Union
 import numpy as np
 
 from ..core.params import RegistrationParams
+from ..utils import spans
 from ..utils.device import resolve_device
 from ..utils.eval import ate_rmse
 from ..utils.ostream import OutputStream
@@ -197,13 +197,13 @@ def run_odometry(
 
     from ..io.prefetch import ScanPrefetcher
 
-    def prep(scan):
-        start = time.perf_counter()
-        if mesh is None:
-            prepared = ProbabilisticRegistration.prepare_target(scan, params, dev, stage=True)
-        else:
-            prepared = DistributedRegistration.prepare_target(scan, params, mesh, stage=True)
-        return prepared, time.perf_counter() - start
+    def prep(scan, pair):
+        with spans.span("prep", pair=pair) as s:
+            if mesh is None:
+                prepared = ProbabilisticRegistration.prepare_target(scan, params, dev, stage=True)
+            else:
+                prepared = DistributedRegistration.prepare_target(scan, params, mesh, stage=True)
+        return prepared, s.seconds
 
     start_pair = len(result.relative_transforms)
     # Target-prep pipeline: pair i's TARGET is scan i, which was pair i-1's
@@ -215,20 +215,23 @@ def run_odometry(
             prev_scan = prefetcher.get(start_pair) if start_pair < n_scans - 1 else None
             prep_future = None
             if prev_scan is not None:
-                prep_future = prep_pool.submit(prep, prev_scan)
+                prep_pair = spans.new_pair()
+                prep_future = prep_pool.submit(prep, prev_scan, prep_pair)
 
             for i in range(start_pair, n_scans - 1):
                 # Overlaps the next scans' disk read/decompress with device compute.
                 source = prefetcher.get(i + 1)
                 target = prev_scan if prev_scan is not None else prefetcher.get(i)
-                wait_start = time.perf_counter()
-                prepared, prep_s = prep_future.result()
-                result.prep_wait_seconds.append(time.perf_counter() - wait_start)
+                pair = prep_pair
+                with spans.span("prep_wait", pair=pair) as wait:
+                    prepared, prep_s = prep_future.result()
+                result.prep_wait_seconds.append(wait.seconds)
                 result.prep_seconds.append(prep_s)
                 # Schedule the NEXT pair's target prep (this pair's source)
                 # before the device work starts.
                 if i + 1 < n_scans - 1:
-                    prep_future = prep_pool.submit(prep, source)
+                    prep_pair = spans.new_pair()
+                    prep_future = prep_pool.submit(prep, source, prep_pair)
                 else:
                     prep_future = None
                 out << f"[pair {i}] registering scan {i + 1} ({source.shape[0]} pts) onto scan {i} ({target.shape[0]} pts)\n"
@@ -258,7 +261,8 @@ def run_odometry(
                 result.capture_seconds.append(reg._lm.capture_seconds)
 
                 if checkpoint_path is not None and main:
-                    save_checkpoint(checkpoint_path, result)
+                    with spans.span("checkpoint", pair=pair if reg._pair is None else reg._pair):
+                        save_checkpoint(checkpoint_path, result)
                 if on_pair is not None:
                     on_pair(i, pose)
                 prev_scan = source  # next pair's target is this (unmoved) scan

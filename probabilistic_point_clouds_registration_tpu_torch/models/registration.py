@@ -61,7 +61,6 @@ Fidelity notes:
 """
 from __future__ import annotations
 
-import time
 import warnings
 from dataclasses import dataclass
 from typing import List, NamedTuple, Optional
@@ -94,6 +93,7 @@ from ..ops.grid import (
 from ..ops.neighbors import radius_search
 from ..ops.neighbors_pallas import pallas_radius_search
 from ..ops.voxel import voxel_downsample
+from ..utils import spans
 from ..utils.device import resolve_device
 from ..utils.eval import calculate_mse
 from ..utils.ostream import OutputStream
@@ -163,6 +163,8 @@ class ProbabilisticRegistration:
         must be asked for with "cpu". Nothing falls back to the CPU.
     """
 
+    _pair = None  # the pair id of the ctor's spans
+
     @staticmethod
     def prepare_target(target_cloud: np.ndarray, params: RegistrationParams,
                        device: str | torch.device = "cuda", *,
@@ -184,6 +186,9 @@ class ProbabilisticRegistration:
         (``pool_prepack``): on a CUDA device on a stream of its own, with an
         event (``pool_event``) that the ctor makes its stream wait on before
         the first use. The ctor then skips its own build.
+
+        The result carries the pair id (``pair``) of its spans: that of the
+        span open around the call, else a new one; the ctor takes it over.
         """
         if isinstance(device, bool):
             raise TypeError(
@@ -191,31 +196,35 @@ class ProbabilisticRegistration:
                 "the device here; to stage the pooled engine's device state "
                 "(the JAX package's positional device=True) pass stage=True"
             )
-        target = np.asarray(target_cloud, dtype=np.float64)
-        if params.target_filter_size > 0:
-            target = voxel_downsample(target, params.target_filter_size)
-        tg, n_tgt = pad_cloud(target, params.pad_multiple, pad_value=0.0)
-        try_pool = _pool_expected(params, device)
-        grid = None
-        pool_plan = None
-        if params.search_impl in ("auto", "grid", "fused", "pool"):
-            grid = build_grid_host(
-                tg, params.radius, num_valid=n_tgt,
-                max_overflow=params.grid_max_overflow, buckets=not try_pool,
-            )
-        # The ctor drops the grid on "auto" when the candidate set is too
-        # close to M; no plan is made for a grid it will not use.
-        if grid is not None and try_pool and not _too_dense(grid, n_tgt, params):
-            pool_plan = _fp.plan_pool_host(grid, tg, device=device) or False
-            if pool_plan is False:
-                add_buckets_host(grid, tg)  # for the engines after the pool
-        prepared = {"target_cloud": target, "tg": tg, "n_tgt": n_tgt, "grid": grid,
-                    "pool_plan": pool_plan, "pool_cutoff": _fp._select_max_w(device)}
-        if stage and pool_plan:
-            dev = resolve_device(device)
-            prepared["pool_device"] = dev
-            prepared["pool_prepack"], prepared["pool_event"] = _stage_pool(
-                grid, tg, pool_plan, params, dev)
+        with spans.span("prepare_target", pair=spans.pair_or_new()) as s:
+            target = np.asarray(target_cloud, dtype=np.float64)
+            if params.target_filter_size > 0:
+                target = voxel_downsample(target, params.target_filter_size)
+            tg, n_tgt = pad_cloud(target, params.pad_multiple, pad_value=0.0)
+            try_pool = _pool_expected(params, device)
+            grid = None
+            pool_plan = None
+            if params.search_impl in ("auto", "grid", "fused", "pool"):
+                with spans.span("grid_build"):
+                    grid = build_grid_host(
+                        tg, params.radius, num_valid=n_tgt,
+                        max_overflow=params.grid_max_overflow, buckets=not try_pool,
+                    )
+            # The ctor drops the grid on "auto" when the candidate set is too
+            # close to M; no plan is made for a grid it will not use.
+            if grid is not None and try_pool and not _too_dense(grid, n_tgt, params):
+                with spans.span("pool_plan"):
+                    pool_plan = _fp.plan_pool_host(grid, tg, device=device) or False
+                if pool_plan is False:
+                    add_buckets_host(grid, tg)  # for the engines after the pool
+            prepared = {"target_cloud": target, "tg": tg, "n_tgt": n_tgt, "grid": grid,
+                        "pool_plan": pool_plan, "pool_cutoff": _fp._select_max_w(device),
+                        "pair": s.pair}
+            if stage and pool_plan:
+                dev = resolve_device(device)
+                prepared["pool_device"] = dev
+                prepared["pool_prepack"], prepared["pool_event"] = _stage_pool(
+                    grid, tg, pool_plan, params, dev)
         return prepared
 
     def __init__(
@@ -227,83 +236,87 @@ class ProbabilisticRegistration:
         prepared_target: Optional[dict] = None,
         device: str | torch.device = "cuda",
     ):
-        self._init_host_prelude(source_cloud, params, device)
-        np_dtype = np.dtype(params.dtype)
-        if prepared_target is None:
-            if params.target_filter_size > 0:
-                self.out << (f"Filtering target point cloud with leaf of size "
-                             f"{params.target_filter_size}\n")
-            prepared_target = self.prepare_target(target_cloud, params, self.device)
-        self.target_cloud = prepared_target["target_cloud"]
-        self._init_ground_truth(ground_truth_cloud)
+        pair = spans.pair_or_new((prepared_target or {}).get("pair"))
+        with spans.span("ctor", pair=pair):
+            self._pair = pair
+            self._init_host_prelude(source_cloud, params, device)
+            np_dtype = np.dtype(params.dtype)
+            if prepared_target is None:
+                if params.target_filter_size > 0:
+                    self.out << (f"Filtering target point cloud with leaf of size "
+                                 f"{params.target_filter_size}\n")
+                prepared_target = self.prepare_target(target_cloud, params, self.device)
+            self.target_cloud = prepared_target["target_cloud"]
+            self._init_ground_truth(ground_truth_cloud)
 
-        fs, self._n_src = pad_cloud(self.filtered_source, params.pad_multiple, pad_value=0.0)
-        tg, self._n_tgt = prepared_target["tg"], prepared_target["n_tgt"]
-        dev = self.device
-        self._src = torch.as_tensor(fs.astype(np_dtype), device=dev)
-        self._src_valid = torch.arange(fs.shape[0], device=dev) < self._n_src
-        self._tgt = torch.as_tensor(tg.astype(np_dtype), device=dev)
-        self._tgt_valid = torch.arange(tg.shape[0], device=dev) < self._n_tgt
+            fs, self._n_src = pad_cloud(self.filtered_source, params.pad_multiple, pad_value=0.0)
+            tg, self._n_tgt = prepared_target["tg"], prepared_target["n_tgt"]
+            dev = self.device
+            self._src = torch.as_tensor(fs.astype(np_dtype), device=dev)
+            self._src_valid = torch.arange(fs.shape[0], device=dev) < self._n_src
+            self._tgt = torch.as_tensor(tg.astype(np_dtype), device=dev)
+            self._tgt_valid = torch.arange(tg.shape[0], device=dev) < self._n_tgt
 
-        # Engine choice. The density check: a candidate set too close to M
-        # is cheaper brute force (registration.py:865-873 of the JAX package).
-        grid = prepared_target["grid"]
-        if grid is not None and _too_dense(grid, self._n_tgt, params):
-            grid = None
-        self._grid = None  # the device grid, uploaded lazily
-        self._grid_host = grid
-        self._tg_padded = tg
-        self._prepack = None
-        self._pool = None
-        self._pool_budget_base = 0
-        self._pool_class_cum = None
-        plan = prepared_target.get("pool_plan")
-        staged = prepared_target.get("pool_prepack")
-        if prepared_target.get("pool_cutoff") != _fp._select_max_w(dev):
-            plan = staged = None  # planned for another device's cutoff
-        if prepared_target.get("pool_device") != dev:
-            staged = None  # staged on another device
-        if grid is not None and _pool_expected(params, dev):
-            if plan is None:
-                plan = _fp.plan_pool_host(grid, tg, device=dev) or False
-            if plan:
-                self._init_pool(grid, tg, plan, np_dtype, staged,
-                                prepared_target.get("pool_event"))
-        if (self._pool is None and grid is not None
-                and params.search_impl in ("auto", "fused")):
-            # Live bucket slots per cell = min(count, capacity), which needs
-            # no bucket tensors.
-            counts = np.minimum(grid["cell_count"], grid["capacity"])
-            est_rows = int(np.ceil(counts / _fg.GROUP).sum()) * _fg.GROUP
-            dense_fit = est_rows <= 1.7 * tg.shape[0]
-            # Explicit "fused" skips the fit estimate (the runtime overflow
-            # flag still protects correctness), and so does the CPU's auto.
-            if params.search_impl == "fused" or dev.type != "cuda" or dense_fit:
-                g = self._ensure_grid_device()
-                pre = _fg.build_prepack(
-                    grid, g.bucket_pts, g.bucket_idx, k=params.max_neighbours
-                )
-                if pre is not None:
-                    self._prepack = pre
-                    self.out << (
-                        f"Fused engine: {pre.n_dilated} dilated cells, "
-                        f"{pre.n_lanes} candidate lanes\n"
+            # Engine choice. The density check: a candidate set too close to M
+            # is cheaper brute force (registration.py:865-873 of the JAX package).
+            grid = prepared_target["grid"]
+            if grid is not None and _too_dense(grid, self._n_tgt, params):
+                grid = None
+            self._grid = None  # the device grid, uploaded lazily
+            self._grid_host = grid
+            self._tg_padded = tg
+            self._prepack = None
+            self._pool = None
+            self._pool_budget_base = 0
+            self._pool_class_cum = None
+            plan = prepared_target.get("pool_plan")
+            staged = prepared_target.get("pool_prepack")
+            if prepared_target.get("pool_cutoff") != _fp._select_max_w(dev):
+                plan = staged = None  # planned for another device's cutoff
+            if prepared_target.get("pool_device") != dev:
+                staged = None  # staged on another device
+            if grid is not None and _pool_expected(params, dev):
+                if plan is None:
+                    with spans.span("pool_plan"):
+                        plan = _fp.plan_pool_host(grid, tg, device=dev) or False
+                if plan:
+                    self._init_pool(grid, tg, plan, np_dtype, staged,
+                                    prepared_target.get("pool_event"))
+            if (self._pool is None and grid is not None
+                    and params.search_impl in ("auto", "fused")):
+                # Live bucket slots per cell = min(count, capacity), which needs
+                # no bucket tensors.
+                counts = np.minimum(grid["cell_count"], grid["capacity"])
+                est_rows = int(np.ceil(counts / _fg.GROUP).sum()) * _fg.GROUP
+                dense_fit = est_rows <= 1.7 * tg.shape[0]
+                # Explicit "fused" skips the fit estimate (the runtime overflow
+                # flag still protects correctness), and so does the CPU's auto.
+                if params.search_impl == "fused" or dev.type != "cuda" or dense_fit:
+                    g = self._ensure_grid_device()
+                    pre = _fg.build_prepack(
+                        grid, g.bucket_pts, g.bucket_idx, k=params.max_neighbours
                     )
-        if self._pool is None and grid is not None:
-            self._ensure_grid_device()
-        self.engine = (
-            "pool" if self._pool is not None
-            else "fused" if self._prepack is not None
-            else "grid" if self._grid is not None
-            else "pallas" if params.search_impl == "pallas"
-            else "brute"
-        )
+                    if pre is not None:
+                        self._prepack = pre
+                        self.out << (
+                            f"Fused engine: {pre.n_dilated} dilated cells, "
+                            f"{pre.n_lanes} candidate lanes\n"
+                        )
+            if self._pool is None and grid is not None:
+                self._ensure_grid_device()
+            self.engine = (
+                "pool" if self._pool is not None
+                else "fused" if self._prepack is not None
+                else "grid" if self._grid is not None
+                else "pallas" if params.search_impl == "pallas"
+                else "brute"
+            )
 
-        self._lm_config = self._make_lm_config(params)
-        # The inner solve's blocks: on a card CUDA graphs, captured at the
-        # pair's first solve and replayed for the rest of the pair.
-        self._lm = LMBlocks.for_device(self.device)
-        self._init_bookkeeping(params)
+            self._lm_config = self._make_lm_config(params)
+            # The inner solve's blocks: on a card CUDA graphs, captured at the
+            # pair's first solve and replayed for the rest of the pair.
+            self._lm = LMBlocks.for_device(self.device)
+            self._init_bookkeeping(params)
 
     def _init_host_prelude(self, source_cloud, params: RegistrationParams, device,
                            main: bool = True) -> None:
@@ -372,38 +385,39 @@ class ProbabilisticRegistration:
                    staged=None, event=None) -> None:
         """Build the pool, or take the one :meth:`prepare_target` staged,
         and size its budgets (registration.py:917-986 of the JAX package)."""
-        p = self.params
-        pool = staged
-        if pool is None:
-            pool = _fp.build_pool_prepack(
-                grid, tg, dtype=np_dtype, plan=plan, k=p.max_neighbours,
-                device=self.device,
+        with spans.span("pool_build"):
+            p = self.params
+            pool = staged
+            if pool is None:
+                pool = _fp.build_pool_prepack(
+                    grid, tg, dtype=np_dtype, plan=plan, k=p.max_neighbours,
+                    device=self.device,
+                )
+            elif event is not None:
+                # Staged on another stream: this stream waits for the build, and
+                # the allocator keeps the pool's blocks until this stream's work
+                # on them is done (not only the staging stream's).
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(event)
+                for t in _pool_tensors(pool):
+                    t.record_stream(stream)
+            # Row budget from the real source's grouping demand: the plan's
+            # target-occupancy proxy undercounts moved sources (they land in
+            # dilated shell cells it scores 0). The class-prefix budgets come
+            # from the same replay; the overflow flag still guards drift.
+            rot = np_quat_to_matrix(np.asarray(p.initial_rotation, np.float64))
+            moved0 = self.filtered_source @ rot.T + np.asarray(p.initial_translation, np.float64)
+            demand, self._pool_class_cum = _fp.estimate_pool_demand_rows(
+                plan, moved0, class_row_ends=pool.class_ends
             )
-        elif event is not None:
-            # Staged on another stream: this stream waits for the build, and
-            # the allocator keeps the pool's blocks until this stream's work
-            # on them is done (not only the staging stream's).
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(event)
-            for t in _pool_tensors(pool):
-                t.record_stream(stream)
-        # Row budget from the real source's grouping demand: the plan's
-        # target-occupancy proxy undercounts moved sources (they land in
-        # dilated shell cells it scores 0). The class-prefix budgets come
-        # from the same replay; the overflow flag still guards drift.
-        rot = np_quat_to_matrix(np.asarray(p.initial_rotation, np.float64))
-        moved0 = self.filtered_source @ rot.T + np.asarray(p.initial_translation, np.float64)
-        demand, self._pool_class_cum = _fp.estimate_pool_demand_rows(
-            plan, moved0, class_row_ends=pool.class_ends
-        )
-        self._pool_budget_base = max(
-            pool.budget_rows, bucket_rows(int(1.25 * demand), step_bits=3)
-        )
-        self._pool = pool
-        self.out << (
-            f"Pooled engine: {pool.n_dilated} dilated cells, "
-            f"classes {pool.class_widths} x {pool.class_ends}\n"
-        )
+            self._pool_budget_base = max(
+                pool.budget_rows, bucket_rows(int(1.25 * demand), step_bits=3)
+            )
+            self._pool = pool
+            self.out << (
+                f"Pooled engine: {pool.n_dilated} dilated cells, "
+                f"classes {pool.class_widths} x {pool.class_ends}\n"
+            )
 
     def _ensure_grid_device(self):
         """Upload the hash grid (idempotent); returns the HashGrid, or None
@@ -550,7 +564,7 @@ class ProbabilisticRegistration:
         With ``params.profile_dir`` set, the loop runs under
         ``torch.profiler`` (CPU and, with a card, CUDA activity) and its
         trace is written into that directory (the JAX package's
-        ``jax.profiler.trace``).
+        ``jax.profiler.trace``), with the loop's spans as ``pcr/`` ranges.
         """
         if self.params.profile_dir:
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -562,39 +576,41 @@ class ProbabilisticRegistration:
         return self._align_loop()
 
     def _align_loop(self) -> np.ndarray:
-        p = self.params
-        q0 = torch.tensor(p.initial_rotation, dtype=self.dtype, device=self.device)
-        t0 = torch.tensor(p.initial_translation, dtype=self.dtype, device=self.device)
-        chunk = max(1, int(p.outer_chunk))
-        lm_config = self._lm_config._replace(trace=True) if p.trace_inner else self._lm_config
-        converged = False
-        while not converged:
-            # The device replays the host's check sequence from this
-            # snapshot, taken before has_converged() moves the counter.
-            conv0 = (np.float32(self.cost_drop), self.num_unuseful_iter,
-                     self.current_iteration)
-            if self.has_converged():
-                break
-            iter_start = time.perf_counter()
-            # Slots past n_iter are stopped by the device's rule (an exact
-            # integer test): none is launched.
-            slots = max(1, min(chunk, p.n_iter - self.current_iteration))
-            outs = self._run_chunk(conv0, slots, q0, t0, lm_config)
-            if outs[:, _OVF].sum() > 0:
-                # Nothing of the chunk is consumed; the loop-top check ran for
-                # an iteration that never happened: restore its counter.
-                self.num_unuseful_iter = conv0[1]
-                self._overflowed()
-                continue
-            converged = self._consume_chunk(outs, iter_start)
+        with spans.span("align", pair=self._pair):
+            p = self.params
+            q0 = torch.tensor(p.initial_rotation, dtype=self.dtype, device=self.device)
+            t0 = torch.tensor(p.initial_translation, dtype=self.dtype, device=self.device)
+            chunk = max(1, int(p.outer_chunk))
+            lm_config = self._lm_config._replace(trace=True) if p.trace_inner else self._lm_config
+            converged = False
+            while not converged:
+                # The device replays the host's check sequence from this
+                # snapshot, taken before has_converged() moves the counter.
+                conv0 = (np.float32(self.cost_drop), self.num_unuseful_iter,
+                         self.current_iteration)
+                if self.has_converged():
+                    break
+                # Slots past n_iter are stopped by the device's rule (an exact
+                # integer test): none is launched.
+                slots = max(1, min(chunk, p.n_iter - self.current_iteration))
+                with spans.span("chunk") as c:
+                    outs = self._run_chunk(conv0, slots, q0, t0, lm_config)
+                    if outs[:, _OVF].sum() > 0:
+                        # Nothing of the chunk is consumed; the loop-top check ran
+                        # for an iteration that never happened: restore its counter.
+                        self.num_unuseful_iter = conv0[1]
+                        spans.count("redo")
+                        self._overflowed()
+                        continue
+                    converged = self._consume_chunk(outs, c.elapsed())
 
-        if self.ground_truth:
-            final = self.transformation()
-            aligned = self.source_cloud @ final[:3, :3].T + final[:3, 3]
-            self.mse_ground_truth = calculate_mse(aligned, self.ground_truth_cloud)
-            if self._is_main:
-                print(f"MSE w.r.t. ground truth: {self.mse_ground_truth}")
-        return self.transformation()
+            if self.ground_truth:
+                final = self.transformation()
+                aligned = self.source_cloud @ final[:3, :3].T + final[:3, 3]
+                self.mse_ground_truth = calculate_mse(aligned, self.ground_truth_cloud)
+                if self._is_main:
+                    print(f"MSE w.r.t. ground truth: {self.mse_ground_truth}")
+            return self.transformation()
 
     def _print_lm_trace(self, trace_rows, n_lm: int) -> None:
         """Per-LM-iteration diagnostics, the analogue of the reference's
@@ -606,14 +622,15 @@ class ProbabilisticRegistration:
                 f"trust_radius={radius:.4g} {'accepted' if accepted else 'rejected'}\n"
             )
 
-    def _consume_chunk(self, outs: np.ndarray, iter_start: float) -> bool:
+    def _consume_chunk(self, outs: np.ndarray, seconds: float) -> bool:
         """Host bookkeeping for a chunk (the JAX package's
         ``_consume_chunk``, models/registration.py:1193-1234 there): the
         reference stopping rule re-applied row by row, exactly like a
-        one-iteration loop (cc:65,138-158). Returns True when it fired
-        mid-chunk."""
+        one-iteration loop (cc:65,138-158); ``seconds``, the chunk's time so
+        far, is spread evenly over its iterations. Returns True when it
+        fired mid-chunk."""
         executed = outs[:, _EXEC] > 0
-        per_iter = (time.perf_counter() - iter_start) / max(1, int(executed.sum()))
+        per_iter = seconds / max(1, int(executed.sum()))
         for j, row in enumerate(outs):
             unuseful_before = self.num_unuseful_iter
             if j > 0 and self.has_converged():
@@ -781,12 +798,14 @@ def scan_convergence(associate, lm: LMBlocks, source, t_cum: np.ndarray, conv0, 
         stop = done | (it >= n_iter) | (low & (unuseful > n_cost_drop_it))
         unuseful = torch.where(stop, unuseful, torch.where(low, unuseful + 1, 0))
         moved = quat_rotate_points(qc, source) + tc
-        a = associate(moved)
+        with spans.span("search"):
+            a = associate(moved)
         # An overflowed search's chunk is discarded: its solve takes no
         # step either, and the chunk ends there.
         halt = stop if a.overflow is None else stop | (a.overflow > 0)
-        res, (lm_done, lm_iterations, _) = lm.solve(
-            a.source, a.targets, a.mask, q0, t0, lm_config, frozen=halt, mesh=mesh)
+        with spans.span("lm"):
+            res, (lm_done, lm_iterations, _) = lm.solve(
+                a.source, a.targets, a.mask, q0, t0, lm_config, frozen=halt, mesh=mesh)
         if check is not None:
             res = check(res, a)
         qn = quat_normalize(res.q)
@@ -813,7 +832,9 @@ def scan_convergence(associate, lm: LMBlocks, source, t_cum: np.ndarray, conv0, 
         rows.append(torch.where(stop, frozen, row))
         if lm_done and lm_iterations == 0:
             break  # stopped (and so would be the rest) or overflowed
-    return torch.stack(rows).cpu().numpy()
+    rows = torch.stack(rows)
+    with spans.span("chunk_read"):
+        return rows.cpu().numpy()
 
 
 def _stage_pool(grid: dict, tg: np.ndarray, plan: dict, params: RegistrationParams,

@@ -480,9 +480,10 @@ def grid_radius_search(
     return corr
 
 
-# Candidate-buffer budget behind :func:`pick_source_tile`, chosen by a run of
-# tools/profile_port.py --search-impl grid --grid-budget-mb N on an NVIDIA
-# H100 80GB HBM3 at 700 W: the 131k LiDAR pair took 1.23-1.30 s at 1,024 MB
+# Candidate-buffer budget behind :func:`pick_source_tile`, chosen by timing
+# warm pairs on the grid engine at several budgets on an NVIDIA H100 80GB
+# HBM3 at 700 W (the ``search`` spans of ``utils/spans.py`` time the same
+# phase today): the 131k LiDAR pair took 1.23-1.30 s at 1,024 MB
 # (8 blocks per search) against 1.44-1.51 s at 192 MB (37 blocks) and 1.27 s
 # at 512 MB in one call; past 1,024 MB the 16,384-row cap holds the block.
 SOURCE_TILE_BUDGET_BYTES = 1024 * 1024 * 1024
