@@ -31,9 +31,11 @@ Neighbor sets equal the other engines'. Ties at the k-th slot follow the
 engines' shared (d2, candidate lane) order.
 
 The host half (``_plan_classes`` to ``pool_seed_host``) is the JAX
-package's numpy, copied; the device half is its XLA code in torch. JAX's
-``.at[].set(..., mode="drop")`` drops out-of-range indices; torch has no
-such mode, so :func:`_scatter_drop` sends them to a spare row.
+package's numpy, copied; :func:`plan_pool_host` runs it as one native pass
+(``native/pool_plan.cpp``) when the library loads, with the numpy body as
+its fallback and oracle. The device half is the JAX package's XLA code in
+torch. JAX's ``.at[].set(..., mode="drop")`` drops out-of-range indices;
+torch has no such mode, so :func:`_scatter_drop` sends them to a spare row.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ import numpy as np
 import torch
 
 from ..core.types import Correspondences, bucket_rows as _bucket_rows, pow2 as _pow2, round_up
+from ..utils import spans
 from .fused_grid import (
     BLOCK_GROUPS,
     GROUP,
@@ -267,12 +270,16 @@ def plan_pool_host(
     select_max_w: int | None = None,
     device="cuda",
 ) -> dict | None:
-    """Host-only half of the pool prepack (numpy).
+    """Host-only half of the pool prepack.
 
     ``target`` is the (padded) target cloud the grid was built over (only
     its first ``num_valid`` rows are read). Returns None when the scan does
     not fit the engine: extended LUT too large, a window union beyond
     MAX_CLASS_LANES, or pools past MAX_POOL_BYTES.
+
+    The plan is one native pass (:func:`_plan_pool_native`) when the
+    library loads; the numpy body below is its fallback and the oracle it
+    is held equal to.
 
     The narrow-class cutoff the class split derives from is
     ``select_max_w`` when given, else the one of ``device``
@@ -286,6 +293,10 @@ def plan_pool_host(
     ``prod_d_pad``, ``prod_e_pad``, ``u_pad``, ``n_pad``, ``ud_b``. Each
     must cover this scan's own size (else None).
     """
+    smw_plan = _select_max_w(device) if select_max_w is None else select_max_w
+    plan = _plan_pool_native(grid_host, target, force, smw_plan)
+    if plan is not None:
+        return plan or None
     counts_full = grid_host["cell_count"].astype(np.int64)
     dil = dilate_cells_host(grid_host, counts=counts_full)
     if dil is None:
@@ -315,7 +326,6 @@ def plan_pool_host(
     # real width; when every class runs a kernel (cutoff 0), a window of at
     # most 128 lanes costs the kernel one 128-lane pass anyway, so the
     # split stops at 128.
-    smw_plan = _select_max_w(device) if select_max_w is None else select_max_w
     if force is None:
         w_floor = 128 if smw_plan == 0 else 8
         w_pow2 = np.maximum(
@@ -546,6 +556,80 @@ def plan_pool_host(
         "budgets": budgets,
         "budget_rows": budget_rows,
         "off_e": off_e,
+        "cell_size": grid_host["cell_size"],
+    }
+
+
+def _plan_pool_native(grid_host: dict, target: np.ndarray, force: dict | None,
+                      select_max_w: int) -> dict | bool | None:
+    """:func:`plan_pool_host` as one native pass (``native.plan_pool``): the
+    numpy body's plan bit for bit, False where it returns None, and None
+    when the library is unavailable. Counts ``plan_native`` once per plan."""
+    from .. import native as _native
+
+    dims = grid_host["dims"].astype(np.int64)
+    u = grid_host.get("num_cells", grid_host["cell_ids"].shape[0])
+    n = grid_host["num_valid"]
+    prod_d = int((dims + 2).prod())
+    prod_e = int((dims + 4).prod())
+    if force is None:
+        pads = (_pow2(prod_e), _pow2(prod_d), _bucket_rows(u, step_bits=3),
+                _bucket_rows(n + 1, step_bits=3))
+        forced = None
+    else:
+        pads = (force["prod_e_pad"], force["prod_d_pad"], force["u_pad"], force["n_pad"])
+        forced = (force["widths"], force["pad_sizes"], force["ud_b"])
+    res = _native.plan_pool(
+        grid_host["cell_ids"][:u], grid_host["cell_count"][:u], grid_host["cell_start"][:u],
+        grid_host["sort_order"], np.asarray(target[:n]), dims, select_max_w=select_max_w,
+        pads=pads, force=forced,
+        consts=(GROUP, BLOCK_GROUPS, MAX_CLASS_LANES, MAX_POOL_BYTES, _BIG),
+    )
+    if not res:
+        return res
+    spans.count("plan_native")
+    ud = res["ud"]
+    dil = {
+        "nrows": res["nrows"],
+        "dims_d": (dims + 2).astype(np.int32),
+        "origin_d": grid_host["origin"] - grid_host["cell_size"],
+        "n_dilated": ud,
+        "max_union": res["max_union"],
+        "union": res["union_lut"][:ud],
+        "width_lut": res["dil_width_lut"],
+        "union_lut": res["union_lut"],
+        "d_cells": res["d_cells"][:ud],
+        "prod_d": prod_d,
+        "d_cells_e": res["d_cells_e"][:ud],
+        "base_e": res["base_e"][:u],
+        "prod_e": prod_e,
+        "e_dims": (int(dims[0] + 4), int(dims[1] + 4)),
+        "off_e": res["off_e"],
+    }
+    return {
+        "dil": dil,
+        "widths": res["widths"],
+        "ends": res["ends_pad"],
+        "bands": res["bands"],
+        "row_ends": res["row_ends"],
+        "sizes_real": res["sizes_real"],
+        "packed": res["packed"],
+        "row_vals": res["row_vals"],
+        "d_cells": res["d_cells"],
+        "d_cells_e": res["d_cells_e"],
+        "base_e": res["base_e"],
+        "cell_start": res["cell_start"],
+        "cell_count": res["cell_count"],
+        "width_lut": res["width_lut"],
+        "union_lut": res["row_union_lut"],
+        "qmeta_vals": res["qmeta_vals"],
+        "ud_pad": res["ud_pad"],
+        "n_rows_pad": res["n_rows_pad"],
+        "prod_d_pad": pads[1],
+        "prod_e_pad": pads[0],
+        "budgets": res["budgets"],
+        "budget_rows": res["budget_rows"],
+        "off_e": res["off_e"],
         "cell_size": grid_host["cell_size"],
     }
 

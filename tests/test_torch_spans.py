@@ -204,8 +204,10 @@ def test_one_pair_id_from_prepare_target_through_the_ctor_to_align():
     records = _since(t0)
     pair = prepared["pair"]
     mine = _by_name(r for r in records if r.pair == pair)
-    assert set(mine) == {"prepare_target", "grid_build", "pool_plan", "ctor", "pool_build",
-                         "align", "chunk", "search", "lm", "lm_read", "chunk_read"}
+    # plan_native, the native plan's count, is held by test_torch_pool_plan_native.py.
+    assert set(mine) - {"plan_native"} == {
+        "prepare_target", "grid_build", "pool_plan", "ctor", "pool_build",
+        "align", "chunk", "search", "lm", "lm_read", "chunk_read"}
     assert all(r.pair == pair for r in records)
     ids = {r.id: r for r in records}
     for child, parent in [("grid_build", "prepare_target"), ("pool_plan", "prepare_target"),
