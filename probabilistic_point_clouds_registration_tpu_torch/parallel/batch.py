@@ -33,10 +33,20 @@ On a mesh (``mesh=``) each rank runs its contiguous block of the padded
 pairs (``shard_batch``) with no collective inside the loop, and one
 ``all_gather`` over "points" returns the whole result on every rank, as
 JAX returns a global array.
+
+Spans (``utils/spans.py``): one root ``batch`` a call, over its children
+``batch_grid`` (the targets' hash grids), ``batch_plan`` (the group pool
+plan), ``batch_build`` (padding and uploads, the prepacks, their stacking,
+the demand estimate, this rank's block), ``batch_loop`` (the outer loop),
+``batch_gather`` (the gather and the overflow read: the wait on the slowest
+rank) and ``batch_redo`` (the grid engine's redo and its splice, with its
+own ``batch_grid`` and ``batch_build``); the count ``redo_pairs``. The host
+phases (``batch_grid``, ``batch_plan``, ``batch_build``) feed
+``stats["host_seconds"]``.
 """
 from __future__ import annotations
 
-import time
+import contextlib
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -55,6 +65,7 @@ from ..ops import fused_pool as _fp
 from ..ops.fused_grid import BLOCK_GROUPS, GROUP
 from ..ops.grid import batched_grid_radius_search, build_grid_host, pick_source_tile
 from ..ops.neighbors import radius_search
+from ..utils import spans
 from ..utils.device import resolve_device
 from .mesh import POINTS_AXIS, Mesh, shard_rows
 
@@ -284,18 +295,35 @@ def shard_batch(arrays, mesh: Mesh, axis_name: str = POINTS_AXIS):
     )
 
 
-def _batched_grids_host(stack, counts, idx_tgt, radius):
-    """Per-pair hash grids padded to a common (U_max, capacity, lut_len).
+class _HostPhases:
+    """Opens the spans of a batch's host phases; ``seconds`` sums their
+    wall seconds (``stats["host_seconds"]``)."""
+
+    def __init__(self):
+        self.seconds = 0.0
+
+    @contextlib.contextmanager
+    def __call__(self, name: str):
+        with spans.span(name) as s:
+            yield s
+        self.seconds += s.seconds
+
+
+def _batched_grids_host(stack, counts, idx_tgt, radius, host: Optional[_HostPhases] = None):
+    """Per-pair hash grids padded to a common (U_max, capacity, lut_len),
+    built in a ``batch_grid`` span (``host``'s, when given).
 
     Returns None if any pair can't build a grid (degenerate / LUT too big /
     occupancy too high) — caller falls back to the brute engine.
     """
+    host = _HostPhases() if host is None else host
     uniq = {}
-    for i in np.unique(idx_tgt):
-        g = build_grid_host(stack[i], radius, num_valid=int(counts[i]))
-        if g is None or "lut" not in g:
-            return None
-        uniq[int(i)] = g
+    with host("batch_grid"):
+        for i in np.unique(idx_tgt):
+            g = build_grid_host(stack[i], radius, num_valid=int(counts[i]))
+            if g is None or "lut" not in g:
+                return None
+            uniq[int(i)] = g
     cap = max(g["capacity"] for g in uniq.values())
     cap = 1 << (cap - 1).bit_length()
     u_max = max(g["cell_ids"].shape[0] for g in uniq.values())
@@ -319,10 +347,11 @@ def _batched_grids_host(stack, counts, idx_tgt, radius):
 
 
 def _batched_pools_host(stack, counts, idx_tgt, radius, k, dtype, idx_src=None,
-                        device="cuda"):
+                        device="cuda", host: Optional[_HostPhases] = None):
     """Per-pair POOLED prepacks harmonized to one static geometry
     (ops.fused_pool.plan_pool_host_group), built on ``device`` and stacked on
-    the batch axis.
+    the batch axis; the grids, the plan and the rest in ``host``'s spans
+    ``batch_grid``, ``batch_plan`` and ``batch_build``.
 
     ``idx_src`` (per-pair source scan ids) enables the demand-sized row
     budget: the plan's target-occupancy proxy undercounts REAL pairs
@@ -334,63 +363,68 @@ def _batched_pools_host(stack, counts, idx_tgt, radius, k, dtype, idx_src=None,
     Returns None when any pair declines the pooled engine — callers fall
     back to the batched grid engine.
     """
+    host = _HostPhases() if host is None else host
     uniq_ids = sorted({int(i) for i in idx_tgt})
     grids = {}
-    for i in uniq_ids:
-        # buckets=False: the pooled plan reads only the cell-sorted view.
-        g = build_grid_host(stack[i], radius, num_valid=int(counts[i]), buckets=False)
-        if g is None:
-            return None
-        grids[i] = g
-    plans = _fp.plan_pool_host_group(
-        [grids[i] for i in uniq_ids], [stack[i] for i in uniq_ids], device=device
-    )
+    with host("batch_grid"):
+        for i in uniq_ids:
+            # buckets=False: the pooled plan reads only the cell-sorted view.
+            g = build_grid_host(stack[i], radius, num_valid=int(counts[i]), buckets=False)
+            if g is None:
+                return None
+            grids[i] = g
+    with host("batch_plan"):
+        plans = _fp.plan_pool_host_group(
+            [grids[i] for i in uniq_ids], [stack[i] for i in uniq_ids], device=device
+        )
     if plans is None:
         return None
-    np_dtype = np.dtype(dtype)
-    pres = {}
-    for i, plan in zip(uniq_ids, plans):
-        pre = _fp.build_pool_prepack(grids[i], stack[i], dtype=np_dtype, plan=plan, k=k,
-                                     device=device)
-        if pre is None:
-            return None
-        pres[i] = pre
+    with host("batch_build"):
+        np_dtype = np.dtype(dtype)
+        pres = {}
+        for i, plan in zip(uniq_ids, plans):
+            pre = _fp.build_pool_prepack(grids[i], stack[i], dtype=np_dtype, plan=plan, k=k,
+                                         device=device)
+            if pre is None:
+                return None
+            pres[i] = pre
 
-    first = pres[uniq_ids[0]]
-    n_classes = len(first.class_widths)
-    rows = [pres[int(i)] for i in idx_tgt]
+        first = pres[uniq_ids[0]]
+        n_classes = len(first.class_widths)
+        rows = [pres[int(i)] for i in idx_tgt]
 
-    def stacked(field):
-        return tuple(torch.stack([getattr(r, field)[c] for r in rows]) for c in range(n_classes))
+        def stacked(field):
+            return tuple(torch.stack([getattr(r, field)[c] for r in rows])
+                         for c in range(n_classes))
 
-    smw = _fp._select_max_w(device)
-    all_unions = np.concatenate([p["dil"]["union"] for p in plans])
-    budget_rows = max(int(pres[i].budget_rows) for i in uniq_ids)
-    if idx_src is not None:
-        plan_of = dict(zip(uniq_ids, plans))
-        demand = max(
-            _fp.estimate_pool_demand_rows(
-                plan_of[int(t)], stack[int(s)], num_valid=int(counts[int(s)])
+        smw = _fp._select_max_w(device)
+        all_unions = np.concatenate([p["dil"]["union"] for p in plans])
+        budget_rows = max(int(pres[i].budget_rows) for i in uniq_ids)
+        if idx_src is not None:
+            plan_of = dict(zip(uniq_ids, plans))
+            demand = max(
+                _fp.estimate_pool_demand_rows(
+                    plan_of[int(t)], stack[int(s)], num_valid=int(counts[int(s)])
+                )
+                for s, t in zip(idx_src, idx_tgt)
             )
-            for s, t in zip(idx_src, idx_tgt)
-        )
-        budget_rows = max(budget_rows, bucket_rows(int(1.25 * demand), step_bits=3))
-    return {
-        "select_xyz": stacked("select_xyz"),
-        "pool_idx": stacked("pool_idx"),
-        "class_width_luts": stacked("class_width_luts"),
-        "lut_d": torch.stack([r.lut_d for r in rows]),
-        "origin_d": torch.stack([r.origin_d for r in rows]),
-        "dims_d": torch.stack([r.dims_d for r in rows]),
-        "class_widths": first.class_widths,
-        "class_ends": first.class_ends,
-        "class_budgets": tuple(
-            int(max(pres[i].class_budgets[c] for i in uniq_ids)) for c in range(n_classes)
-        ),
-        "budget_rows": budget_rows,
-        "small_unions": _fp._small_unions(all_unions[all_unions > smw], k),
-        "select_max_w": smw,
-    }
+            budget_rows = max(budget_rows, bucket_rows(int(1.25 * demand), step_bits=3))
+        return {
+            "select_xyz": stacked("select_xyz"),
+            "pool_idx": stacked("pool_idx"),
+            "class_width_luts": stacked("class_width_luts"),
+            "lut_d": torch.stack([r.lut_d for r in rows]),
+            "origin_d": torch.stack([r.origin_d for r in rows]),
+            "dims_d": torch.stack([r.dims_d for r in rows]),
+            "class_widths": first.class_widths,
+            "class_ends": first.class_ends,
+            "class_budgets": tuple(
+                int(max(pres[i].class_budgets[c] for i in uniq_ids)) for c in range(n_classes)
+            ),
+            "budget_rows": budget_rows,
+            "small_unions": _fp._small_unions(all_unions[all_unions > smw], k),
+            "select_max_w": smw,
+        }
 
 
 def _gather_result(result: BatchedPairResult, mesh: Mesh) -> BatchedPairResult:
@@ -435,7 +469,8 @@ def run_odometry_batched(
       device: where the batch runs: ``mesh.device`` on a mesh, else "cuda"
         unless the CPU is asked for.
       stats: a dict that receives ``engine`` ("pool", "grid" or "brute"),
-        ``host_seconds`` (grids, pool plans and builds, uploads),
+        ``host_seconds`` (grids, pool plans and builds, uploads: the sum of
+        the host phases' spans),
         ``outer_loops`` (loop iterations the batch ran), ``capture_seconds``
         and ``graphs_captured`` (the LM graphs') and, on the pooled engine,
         ``class_widths`` and ``redone`` (the pairs the grid engine redid).
@@ -445,37 +480,50 @@ def run_odometry_batched(
     n_scans = len(scans)
     if n_scans < 2:
         return [np.eye(4) for _ in range(n_scans)], None
+    with spans.span("batch"):
+        return _run_batch(scans, k=k, radius=radius, lm_config=lm_config, n_outer=n_outer,
+                          pad_multiple=pad_multiple, mesh=mesh, dtype=dtype,
+                          search_impl=search_impl, cost_drop_thresh=cost_drop_thresh,
+                          n_cost_drop_it=n_cost_drop_it, device=device,
+                          stats={} if stats is None else stats)
+
+
+def _run_batch(scans, *, k, radius, lm_config, n_outer, pad_multiple, mesh, dtype, search_impl,
+               cost_drop_thresh, n_cost_drop_it, device, stats):
+    """:func:`run_odometry_batched` of two scans or more, inside its
+    ``batch`` span."""
+    n_scans = len(scans)
     if isinstance(dtype, str):
         dtype = getattr(torch, dtype)
     np_dtype = np.dtype(str(dtype).removeprefix("torch."))
     dev = resolve_device(mesh.device if mesh is not None else device or "cuda")
-    stats = {} if stats is None else stats
-    start = time.perf_counter()
-    n_max = max(s.shape[0] for s in scans)
-    rows_pad = ((n_max + pad_multiple - 1) // pad_multiple) * pad_multiple
-    padded, valids = [], []
-    for s in scans:
-        p, n = pad_cloud(np.asarray(s, np.float64), pad_multiple, pad_value=0.0)
-        if p.shape[0] < rows_pad:
-            full = np.zeros((rows_pad, 3))
-            full[: p.shape[0]] = p
-            p = full
-        padded.append(p)
-        valids.append(n)
-    stack = np.stack(padded)
-    counts = np.asarray(valids)
+    host = _HostPhases()
+    with host("batch_build"):
+        n_max = max(s.shape[0] for s in scans)
+        rows_pad = ((n_max + pad_multiple - 1) // pad_multiple) * pad_multiple
+        padded, valids = [], []
+        for s in scans:
+            p, n = pad_cloud(np.asarray(s, np.float64), pad_multiple, pad_value=0.0)
+            if p.shape[0] < rows_pad:
+                full = np.zeros((rows_pad, 3))
+                full[: p.shape[0]] = p
+                p = full
+            padded.append(p)
+            valids.append(n)
+        stack = np.stack(padded)
+        counts = np.asarray(valids)
 
-    b = n_scans - 1
-    b_pad = b
-    if mesh is not None:
-        d = mesh.shape[POINTS_AXIS]
-        b_pad = ((b + d - 1) // d) * d
-    idx_src = np.minimum(np.arange(b_pad) + 1, n_scans - 1)
-    idx_tgt = np.minimum(np.arange(b_pad), n_scans - 1)
+        b = n_scans - 1
+        b_pad = b
+        if mesh is not None:
+            d = mesh.shape[POINTS_AXIS]
+            b_pad = ((b + d - 1) // d) * d
+        idx_src = np.minimum(np.arange(b_pad) + 1, n_scans - 1)
+        idx_tgt = np.minimum(np.arange(b_pad), n_scans - 1)
 
-    row = np.arange(stack.shape[1])
-    sources = torch.as_tensor(stack[idx_src].astype(np_dtype), device=dev)
-    sv = torch.as_tensor(row[None, :] < counts[idx_src, None], device=dev)
+        row = np.arange(stack.shape[1])
+        sources = torch.as_tensor(stack[idx_src].astype(np_dtype), device=dev)
+        sv = torch.as_tensor(row[None, :] < counts[idx_src, None], device=dev)
     # The (B, N, 3) target stack uploads only for the grid/brute engines —
     # the pooled path's kernel emits the selected neighbors' coordinates
     # and never reads the target clouds.
@@ -502,68 +550,78 @@ def run_odometry_batched(
     pools = grids = None
     if search_impl == "pool" or (search_impl == "auto" and dev.type == "cuda"):
         pools = _batched_pools_host(stack, counts, idx_tgt, radius, k, np_dtype,
-                                    idx_src=idx_src, device=dev)
+                                    idx_src=idx_src, device=dev, host=host)
         if pools is None and search_impl == "pool":
             raise ValueError("pool engine requested but some pair declines it")
     if pools is None and search_impl in ("auto", "grid"):
-        grids = _batched_grids_host(stack, counts, idx_tgt, radius)
+        grids = _batched_grids_host(stack, counts, idx_tgt, radius, host=host)
         if grids is None and search_impl == "grid":
             raise ValueError("grid engine requested but some pair has no grid")
 
     stats["engine"] = "pool" if pools is not None else "grid" if grids is not None else "brute"
     if pools is not None:
-        budget = round_up(max(pools["budget_rows"], sources.shape[1] + 4096),
-                          2 * BLOCK_GROUPS * GROUP)
-        budgets = pools["class_budgets"][:-1] + (budget // GROUP,)
-        arrays = local((sources, sv, pools["select_xyz"], pools["pool_idx"],
-                        pools["class_width_luts"], pools["lut_d"], pools["origin_d"],
-                        pools["dims_d"]))
-        stats["host_seconds"] = time.perf_counter() - start
+        with host("batch_build"):
+            budget = round_up(max(pools["budget_rows"], sources.shape[1] + 4096),
+                              2 * BLOCK_GROUPS * GROUP)
+            budgets = pools["class_budgets"][:-1] + (budget // GROUP,)
+            arrays = local((sources, sv, pools["select_xyz"], pools["pool_idx"],
+                            pools["class_width_luts"], pools["lut_d"], pools["origin_d"],
+                            pools["dims_d"]))
+        stats["host_seconds"] = host.seconds
         stats["class_widths"] = pools["class_widths"]
-        result = batched_pair_register_pool(
-            *arrays, class_widths=pools["class_widths"], class_ends=pools["class_ends"],
-            class_budgets=budgets, budget_rows=budget, small_unions=pools["small_unions"],
-            select_max_w=pools["select_max_w"], **rule,
-        )
+        with spans.span("batch_loop"):
+            result = batched_pair_register_pool(
+                *arrays, class_widths=pools["class_widths"], class_ends=pools["class_ends"],
+                class_budgets=budgets, budget_rows=budget, small_unions=pools["small_unions"],
+                select_max_w=pools["select_max_w"], **rule,
+            )
         del arrays, pools
     elif grids is not None:
-        tables, cap = grid_arrays(grids)
-        arrays = local((sources, mk_targets(), sv) + tables)
-        stats["host_seconds"] = time.perf_counter() - start
-        result = batched_pair_register_grid(*arrays, capacity=cap, **rule)
+        with host("batch_build"):
+            tables, cap = grid_arrays(grids)
+            arrays = local((sources, mk_targets(), sv) + tables)
+        stats["host_seconds"] = host.seconds
+        with spans.span("batch_loop"):
+            result = batched_pair_register_grid(*arrays, capacity=cap, **rule)
     else:
-        arrays = local((sources, mk_targets(), sv, mk_tv()))
-        stats["host_seconds"] = time.perf_counter() - start
-        result = batched_pair_register(*arrays, **rule)
-    if mesh is not None:
-        result = _gather_result(result, mesh)
+        with host("batch_build"):
+            arrays = local((sources, mk_targets(), sv, mk_tv()))
+        stats["host_seconds"] = host.seconds
+        with spans.span("batch_loop"):
+            result = batched_pair_register(*arrays, **rule)
+    with spans.span("batch_gather"):
+        if mesh is not None:
+            result = _gather_result(result, mesh)
+        if stats["engine"] == "pool":
+            # The gathered flags are the same on every rank: every rank takes
+            # the same branch (and redoes the same pairs).
+            bad = np.flatnonzero(result.overflow.cpu().numpy() > 0)
 
     if stats["engine"] == "pool":
-        # The gathered flags are the same on every rank: every rank takes
-        # the same branch (and redoes the same pairs).
-        bad = np.flatnonzero(result.overflow.cpu().numpy() > 0)
         stats["redone"] = [int(i) for i in bad]
+        spans.count("redo_pairs", int(bad.size))
         if bad.size:
             # The runtime budget flag fired for these pairs — their results
             # are invalid; redo them on the batched grid engine and splice
             # (the batched analogue of the single-pair mid-pair fallback).
-            start = time.perf_counter()
-            sub = _batched_grids_host(stack, counts, idx_tgt[bad], radius)
-            if sub is None:
-                raise RuntimeError("pooled budget overflow and no grid fallback available")
-            tables, cap = grid_arrays(sub)
-            sel = torch.as_tensor(bad, device=dev)
-            redo_src = torch.as_tensor(stack[idx_src[bad]].astype(np_dtype), device=dev)
-            redo_tgt = torch.as_tensor(stack[idx_tgt[bad]].astype(np_dtype), device=dev)
-            stats["host_seconds"] += time.perf_counter() - start
-            redo = batched_pair_register_grid(
-                redo_src, redo_tgt, sv[sel], *tables, capacity=cap, **rule)
-            # Keep the pooled flags: nonzero now reads as "this pair was
-            # redone on the grid engine" (results valid).
-            result = BatchedPairResult(*(
-                x if name == "overflow" else x.index_copy(0, sel, part)
-                for name, x, part in zip(BatchedPairResult._fields, result, redo)
-            ))
+            with spans.span("batch_redo"):
+                sub = _batched_grids_host(stack, counts, idx_tgt[bad], radius, host=host)
+                if sub is None:
+                    raise RuntimeError("pooled budget overflow and no grid fallback available")
+                with host("batch_build"):
+                    tables, cap = grid_arrays(sub)
+                    sel = torch.as_tensor(bad, device=dev)
+                    redo_src = torch.as_tensor(stack[idx_src[bad]].astype(np_dtype), device=dev)
+                    redo_tgt = torch.as_tensor(stack[idx_tgt[bad]].astype(np_dtype), device=dev)
+                stats["host_seconds"] = host.seconds
+                redo = batched_pair_register_grid(
+                    redo_src, redo_tgt, sv[sel], *tables, capacity=cap, **rule)
+                # Keep the pooled flags: nonzero now reads as "this pair was
+                # redone on the grid engine" (results valid).
+                result = BatchedPairResult(*(
+                    x if name == "overflow" else x.index_copy(0, sel, part)
+                    for name, x, part in zip(BatchedPairResult._fields, result, redo)
+                ))
 
     qs = result.q.cpu().double().numpy()
     ts = result.t.cpu().double().numpy()

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..utils import spans
 from ..utils.device import resolve_device
 
 POINTS_AXIS = "points"
@@ -169,14 +170,17 @@ class Mesh:
 
     def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``lax.all_gather``: (axis size, *x.shape), index i from the rank
-        at coordinate i."""
+        at coordinate i. The span ``all_gather`` holds the wait on the
+        slowest rank where the backend waits on the host (``gloo``); NCCL
+        only enqueues, and the wait falls on the result's first read."""
         group = self._groups.get(axis)
         if group is None:
             return x[None]
-        y = self._stage(x)
-        parts = [torch.empty_like(y) for _ in range(self.shape[axis])]
-        dist.all_gather(parts, y, group=group)
-        return self._unstage(torch.stack(parts), x)
+        with spans.span("all_gather"):
+            y = self._stage(x)
+            parts = [torch.empty_like(y) for _ in range(self.shape[axis])]
+            dist.all_gather(parts, y, group=group)
+            return self._unstage(torch.stack(parts), x)
 
     def exchange(self, x: torch.Tensor, axis: str, partner: int) -> torch.Tensor:
         """One pair of a ``lax.ppermute`` whose permutation is an involution

@@ -2,7 +2,8 @@
 time, a thread's own stack, the pair id from ``prepare_target`` through
 the ctor to ``align()``, the ring's bound, counts, profiler ranges only
 under a profiler and on the profiler's clock, and the spans a CPU
-registration and a three-scan sequence record.
+registration, a three-scan sequence and a batch of pairs on each engine
+record.
 
 The ring is shared by the whole process, so each test reads only the
 records that started after its own first stamp."""
@@ -11,6 +12,7 @@ import sys
 import threading
 import time
 from collections import deque
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -25,7 +27,11 @@ from probabilistic_point_clouds_registration_tpu_torch.io.synthetic import (
     wave_grid,
 )
 from probabilistic_point_clouds_registration_tpu_torch.models.odometry import run_odometry
+from probabilistic_point_clouds_registration_tpu_torch.parallel import batch
 from probabilistic_point_clouds_registration_tpu_torch.utils import spans
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import torch_port_mesh_worker as W  # noqa: E402
 
 
 def _since(t0: int) -> list:
@@ -253,3 +259,55 @@ def test_a_sequence_records_its_prep_thread_wait_and_checkpoint(tmp_path):
     assert result.prep_wait_seconds == pytest.approx(
         [(r.end_ns - r.start_ns) * 1e-9 for r in got["prep_wait"]])
     assert np.all(np.isfinite(result.poses[-1]))
+
+
+# The children of a batch's root span on each engine ("redo": the pooled
+# engine with its budgets starved, so that the grid engine redoes pairs).
+BATCH_PHASES = {
+    "pool": {"batch_grid", "batch_plan", "batch_build", "batch_loop", "batch_gather"},
+    "grid": {"batch_grid", "batch_build", "batch_loop", "batch_gather"},
+    "brute": {"batch_build", "batch_loop", "batch_gather"},
+    "redo": {"batch_grid", "batch_plan", "batch_build", "batch_loop", "batch_gather",
+             "batch_redo"},
+}
+
+
+@pytest.mark.parametrize("impl", sorted(BATCH_PHASES))
+def test_a_batch_records_its_phases_and_host_seconds(monkeypatch, impl):
+    if impl == "redo":
+        monkeypatch.setattr(batch, "_batched_pools_host",
+                            W.starved_pools(batch._batched_pools_host))
+    stats = {}
+    t0 = time.perf_counter_ns()
+    poses, _ = batch.run_odometry_batched(
+        _pair_clouds(), k=10, radius=0.5, n_outer=3, pad_multiple=128, dtype="float64",
+        search_impl="pool" if impl == "redo" else impl, device="cpu", stats=stats)
+    records = _since(t0)
+    got = _by_name(records)
+    ids = {r.id: r for r in records}
+    (root,) = got["batch"]
+    assert root.parent is None and root.count is None
+    assert {r.name for r in records if r.parent == root.id and r.count is None} == \
+        BATCH_PHASES[impl]
+    redone = stats.get("redone", [])
+    assert bool(redone) == (impl == "redo")
+    if impl in ("pool", "redo"):
+        (count,) = got["redo_pairs"]
+        assert count.parent == root.id and count.count == len(redone)
+    else:
+        assert "redo_pairs" not in got
+    if impl == "redo":
+        (redo,) = got["batch_redo"]
+        assert {ids[r.parent].name for r in got["batch_grid"] + got["batch_build"]} == \
+            {"batch", "batch_redo"}
+        # The redo's own loop sits in batch_redo (its LM reads, no batch_loop).
+        assert {r.name for r in records if r.parent == redo.id and r.count is None} - \
+            {"lm_read", "lm_capture"} == {"batch_grid", "batch_build"}
+    # host_seconds is the host phases' sum, wherever they sit under the root.
+    host = [r for r in records if r.name in ("batch_grid", "batch_plan", "batch_build")]
+    assert stats["host_seconds"] == pytest.approx(
+        sum(r.end_ns - r.start_ns for r in host) * 1e-9, rel=1e-9, abs=1e-12)
+    for r in records:
+        if r is not root:
+            assert root.start_ns <= r.start_ns <= r.end_ns <= root.end_ns
+    assert np.all(np.isfinite(poses[-1]))
