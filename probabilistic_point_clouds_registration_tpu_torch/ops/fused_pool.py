@@ -634,6 +634,104 @@ def _plan_pool_native(grid_host: dict, target: np.ndarray, force: dict | None,
     }
 
 
+# Lane-width bins of a window, 2**0 .. MAX_CLASS_LANES lanes: a group's
+# statics count each plan's windows by the exponent of pow2(union).
+WIDTH_BINS = MAX_CLASS_LANES.bit_length()
+# PoolStatics.sizes, in order: each a maximum over the group's plans.
+STATIC_SIZES = ("prod_d_pad", "prod_e_pad", "u_pad", "n_pad", "ud_b")
+
+
+class PoolStatics(NamedTuple):
+    """What one shared layout (``plan_pool_host(force=)``) needs from a
+    group's self-keyed plans, in a form that merges across groups
+    (:func:`merge_pool_statics`) to the statics of their union.
+
+    Attributes:
+      widths: (WIDTH_BINS,) int64, 1 at log2 of every class width a plan
+        uses: the ladder is their union.
+      hist: (n_plans, WIDTH_BINS) int64, each plan's windows counted by
+        the exponent of pow2(union): the ladder's per-class counts.
+      sizes: (len(STATIC_SIZES),) int64, the padded sizes' maxima.
+    """
+
+    widths: np.ndarray
+    hist: np.ndarray
+    sizes: np.ndarray
+
+
+def pool_group_statics(grids: list, targets: list, *, select_max_w: int | None = None,
+                       device="cuda") -> PoolStatics | None:
+    """The first half of :func:`plan_pool_host_group`: each scan's
+    self-keyed plan, reduced to its statics. None when any member declines
+    the pooled engine. The cutoff is ``select_max_w``, else ``device``'s."""
+    widths = np.zeros(WIDTH_BINS, np.int64)
+    hist = np.zeros((len(grids), WIDTH_BINS), np.int64)
+    sizes = np.zeros(len(STATIC_SIZES), np.int64)
+    for i, (g, t) in enumerate(zip(grids, targets)):
+        p = plan_pool_host(g, t, select_max_w=select_max_w, device=device)
+        if p is None:
+            return None
+        dil = p["dil"]
+        for w in p["widths"]:
+            widths[int(w).bit_length() - 1] = 1
+        # The exponent _ladder_ends bins a window by (before its clip).
+        e = np.ceil(np.log2(np.maximum(dil["union"], 1))).astype(np.int64)
+        hist[i] = np.bincount(e, minlength=WIDTH_BINS)
+        sizes = np.maximum(sizes, [
+            _pow2(dil["prod_d"]), _pow2(dil["prod_e"]),
+            _bucket_rows(int(dil["base_e"].shape[0])), p["packed"].shape[0] - 1,
+            p["row_vals"].shape[0],
+        ])
+    return PoolStatics(widths, hist, sizes)
+
+
+def merge_pool_statics(parts: list) -> PoolStatics:
+    """The statics of several groups as one group's: the widths' union,
+    every plan's counts, the sizes' maxima."""
+    return PoolStatics(np.max([p.widths for p in parts], axis=0),
+                       np.concatenate([p.hist for p in parts]),
+                       np.max([p.sizes for p in parts], axis=0))
+
+
+def pool_group_force(statics: PoolStatics) -> dict | None:
+    """``plan_pool_host``'s ``force`` for a group: the ladder of every
+    width its plans use, each class padded to the most real windows any
+    plan bins into it (:func:`_ladder_ends`'s binning), the sizes' maxima.
+    None when a window is wider than the ladder's top class."""
+    exps = np.flatnonzero(statics.widths)[::-1]
+    ladder = [1 << int(e) for e in exps]
+    hist = statics.hist
+    if exps.size and hist[:, exps[0] + 1:].any():
+        return None
+    # Class c holds the windows of exponents in (e_{c+1}, e_c]; the last
+    # class also every narrower window (clipped up into it).
+    below = np.cumsum(hist, axis=1)[:, exps]
+    real = below - np.concatenate([below[:, 1:], np.zeros((len(hist), 1), np.int64)], axis=1)
+    force = {
+        "widths": tuple(ladder),
+        "pad_sizes": tuple(
+            int(_bucket_rows(int(real[:, c].max()), max(64, (1 << 20) // (16 * w))))
+            for c, w in enumerate(ladder)
+        ),
+    }
+    force.update((key, int(v)) for key, v in zip(STATIC_SIZES, statics.sizes))
+    return force
+
+
+def plan_pool_host_forced(grids: list, targets: list, force: dict, *,
+                          select_max_w: int | None = None, device="cuda") -> list | None:
+    """The second half of :func:`plan_pool_host_group`: every scan planned
+    with ``force``. None when a member declines (the forced sizes do not
+    cover it)."""
+    out = []
+    for g, t in zip(grids, targets):
+        p = plan_pool_host(g, t, force=force, select_max_w=select_max_w, device=device)
+        if p is None:
+            return None
+        out.append(p)
+    return out
+
+
 def plan_pool_host_group(grids: list, targets: list, *, select_max_w: int | None = None,
                          device="cuda") -> list | None:
     """Plan several scans with ONE shared static layout (the target shards
@@ -641,46 +739,16 @@ def plan_pool_host_group(grids: list, targets: list, *, select_max_w: int | None
     scan again with ``force`` statics taken as maxima over the group.
     Returns the aligned plans, or None when any member declines the pooled
     engine. The cutoff is ``select_max_w``, else ``device``'s.
+
+    The two halves (:func:`pool_group_statics`, then
+    :func:`pool_group_force` and :func:`plan_pool_host_forced`) can run on
+    parts of a group: the parts' merged statics give the whole group's
+    ``force`` (``parallel/batch.py`` on a mesh).
     """
     kw = dict(select_max_w=select_max_w, device=device)
-    plans = []
-    for g, t in zip(grids, targets):
-        p = plan_pool_host(g, t, **kw)
-        if p is None:
-            return None
-        plans.append(p)
-    ladder = sorted({w for p in plans for w in p["widths"]}, reverse=True)
-    real = np.zeros((len(plans), len(ladder)), np.int64)
-    for i, p in enumerate(plans):
-        ends = _ladder_ends(p["dil"]["union"], ladder)
-        if ends is None:
-            return None
-        real[i] = np.diff([0] + ends)
-    force = {
-        "widths": tuple(ladder),
-        "pad_sizes": tuple(
-            int(
-                _bucket_rows(
-                    int(real[:, c].max()), max(64, (1 << 20) // (16 * w))
-                )
-            )
-            for c, w in enumerate(ladder)
-        ),
-        "prod_d_pad": max(_pow2(p["dil"]["prod_d"]) for p in plans),
-        "prod_e_pad": max(_pow2(p["dil"]["prod_e"]) for p in plans),
-        "u_pad": max(
-            _bucket_rows(int(p["dil"]["base_e"].shape[0])) for p in plans
-        ),
-        "n_pad": max(p["packed"].shape[0] - 1 for p in plans),
-        "ud_b": max(p["row_vals"].shape[0] for p in plans),
-    }
-    out = []
-    for g, t in zip(grids, targets):
-        p2 = plan_pool_host(g, t, force=force, **kw)
-        if p2 is None:  # cannot happen: the forced sizes cover every member
-            return None
-        out.append(p2)
-    return out
+    statics = pool_group_statics(grids, targets, **kw)
+    force = None if statics is None else pool_group_force(statics)
+    return None if force is None else plan_pool_host_forced(grids, targets, force, **kw)
 
 
 def estimate_pool_demand_rows(plan: dict, source: np.ndarray,

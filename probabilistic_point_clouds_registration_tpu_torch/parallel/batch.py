@@ -30,19 +30,27 @@ over the pairs: it runs no kernel); ``"grid"`` batches per-pair hash grids
 per-pair prepacks sharing one static layout.
 
 On a mesh (``mesh=``) each rank runs its contiguous block of the padded
-pairs (``shard_batch``) with no collective inside the loop, and one
+pairs (``shard_rows``' rule) with no collective inside the loop, and one
 ``all_gather`` over "points" returns the whole result on every rank, as
-JAX returns a global array.
+JAX returns a global array. The pooled engine prepares only the rank's
+block (its scans, grids, plans, prepacks, demand replays and uploads);
+two small ``all_gather``s agree what every rank's program shares, so that
+each rank runs the geometry the whole batch's group plan gives. The grid
+and brute engines, and the grid redo of overflowed pooled pairs, prepare
+the whole batch on every rank.
 
 Spans (``utils/spans.py``): one root ``batch`` a call, over its children
 ``batch_grid`` (the targets' hash grids), ``batch_plan`` (the group pool
 plan), ``batch_build`` (padding and uploads, the prepacks, their stacking,
-the demand estimate, this rank's block), ``batch_loop`` (the outer loop),
-``batch_gather`` (the gather and the overflow read: the wait on the slowest
-rank) and ``batch_redo`` (the grid engine's redo and its splice, with its
-own ``batch_grid`` and ``batch_build``); the count ``redo_pairs``. The host
-phases (``batch_grid``, ``batch_plan``, ``batch_build``) feed
-``stats["host_seconds"]``.
+the demand estimate), ``batch_loop`` (the outer loop), ``batch_gather``
+(the gather and the overflow read: the wait on the slowest rank) and
+``batch_redo`` (the grid engine's redo and its splice, with its own
+``batch_grid`` and ``batch_build``); inside ``batch_plan`` and
+``batch_build`` on a mesh, ``batch_agree`` (an exchange of the pooled
+geometry, and the wait on the slowest rank's planning); the counts
+``batch_targets`` (the distinct targets whose pool plan this rank made)
+and ``redo_pairs``. The host phases (``batch_grid``, ``batch_plan``,
+``batch_build``) feed ``stats["host_seconds"]``.
 """
 from __future__ import annotations
 
@@ -59,7 +67,7 @@ from ..core.se3 import (
     quat_rotate_points,
     unit_quat_rotate,
 )
-from ..core.types import bucket_rows, pad_cloud, round_up
+from ..core.types import bucket_rows, round_up
 from ..models.em_lm import LMBlocks, LMConfig
 from ..ops import fused_pool as _fp
 from ..ops.fused_grid import BLOCK_GROUPS, GROUP
@@ -309,9 +317,30 @@ class _HostPhases:
         self.seconds += s.seconds
 
 
-def _batched_grids_host(stack, counts, idx_tgt, radius, host: Optional[_HostPhases] = None):
+class _PaddedScans(dict):
+    """The batch's scans by index, each padded with zero rows to one row
+    count (the longest scan's, rounded up to ``pad_multiple``) at its first
+    use, so that a rank pads only the scans its pairs read."""
+
+    def __init__(self, scans, pad_multiple: int):
+        super().__init__()
+        self.scans = scans
+        self.rows = round_up(max(s.shape[0] for s in scans), pad_multiple)
+        self.counts = np.asarray([s.shape[0] for s in scans])
+
+    def __missing__(self, i) -> np.ndarray:
+        p = self[i] = np.zeros((self.rows, 3))
+        p[: self.counts[i]] = self.scans[i]
+        return p
+
+    def stack(self, ids) -> np.ndarray:
+        return np.stack([self[int(i)] for i in ids])
+
+
+def _batched_grids_host(clouds, counts, idx_tgt, radius, host: Optional[_HostPhases] = None):
     """Per-pair hash grids padded to a common (U_max, capacity, lut_len),
-    built in a ``batch_grid`` span (``host``'s, when given).
+    built in a ``batch_grid`` span (``host``'s, when given); ``clouds[i]``
+    is scan i padded.
 
     Returns None if any pair can't build a grid (degenerate / LUT too big /
     occupancy too high) — caller falls back to the brute engine.
@@ -320,7 +349,7 @@ def _batched_grids_host(stack, counts, idx_tgt, radius, host: Optional[_HostPhas
     uniq = {}
     with host("batch_grid"):
         for i in np.unique(idx_tgt):
-            g = build_grid_host(stack[i], radius, num_valid=int(counts[i]))
+            g = build_grid_host(clouds[i], radius, num_valid=int(counts[i]))
             if g is None or "lut" not in g:
                 return None
             uniq[int(i)] = g
@@ -330,7 +359,7 @@ def _batched_grids_host(stack, counts, idx_tgt, radius, host: Optional[_HostPhas
     lut_len = max(g["lut"].shape[0] for g in uniq.values())
 
     b = len(idx_tgt)
-    bp = np.zeros((b, u_max, cap, 3), dtype=stack.dtype)
+    bp = np.zeros((b, u_max, cap, 3), dtype=clouds[int(idx_tgt[0])].dtype)
     bi = np.full((b, u_max, cap), -1, dtype=np.int32)
     luts = np.full((b, lut_len), -1, dtype=np.int32)
     origins = np.zeros((b, 3))
@@ -346,12 +375,58 @@ def _batched_grids_host(stack, counts, idx_tgt, radius, host: Optional[_HostPhas
     return bp, bi, luts, origins, dims, cap
 
 
-def _batched_pools_host(stack, counts, idx_tgt, radius, k, dtype, idx_src=None,
-                        device="cuda", host: Optional[_HostPhases] = None):
+def _gather_rows(vec, mesh: Mesh | None) -> np.ndarray:
+    """Every rank's int64 vector ``vec`` (one length on every rank) in rank
+    order over "points", (ranks, len): one ``all_gather`` in the span
+    ``batch_agree``, read back on the host (the wait on the slowest rank);
+    (1, len) without a mesh."""
+    vec = np.asarray(vec, np.int64)
+    if mesh is None:
+        return vec[None]
+    with spans.span("batch_agree"):
+        x = torch.as_tensor(vec, device=mesh.device)
+        return mesh.all_gather(x, POINTS_AXIS, span=False).cpu().numpy()
+
+
+def _agree_statics(statics, rows: int, mesh: Mesh | None):
+    """The pool statics of every rank's block merged, the same on every
+    rank; None when any rank declined (``statics`` None). Each rank sends
+    [declined, widths, sizes, hist padded to ``rows`` plans]."""
+    nb, ns = _fp.WIDTH_BINS, len(_fp.STATIC_SIZES)
+    vec = np.zeros(1 + nb + ns + rows * nb, np.int64)
+    if statics is None:
+        vec[0] = 1
+    else:
+        hist = statics.hist
+        vec[1:] = np.concatenate([statics.widths, statics.sizes, hist.ravel(),
+                                  np.zeros((rows - len(hist)) * nb, np.int64)])
+    got = _gather_rows(vec, mesh)
+    if got[:, 0].any():
+        return None
+    return _fp.merge_pool_statics([
+        _fp.PoolStatics(v[1:1 + nb], v[1 + nb + ns:].reshape(rows, nb), v[1 + nb:1 + nb + ns])
+        for v in got
+    ])
+
+
+def _batched_pools_host(clouds, counts, idx_tgt, radius, k, dtype, idx_src=None,
+                        device="cuda", host: Optional[_HostPhases] = None,
+                        mesh: Mesh | None = None):
     """Per-pair POOLED prepacks harmonized to one static geometry
     (ops.fused_pool.plan_pool_host_group), built on ``device`` and stacked on
     the batch axis; the grids, the plan and the rest in ``host``'s spans
-    ``batch_grid``, ``batch_plan`` and ``batch_build``.
+    ``batch_grid``, ``batch_plan`` and ``batch_build``. ``clouds[i]`` is
+    scan i padded; the count ``batch_targets`` records the distinct
+    targets planned.
+
+    ``idx_tgt`` / ``idx_src`` are the pairs this call prepares. On a
+    ``mesh`` they are this rank's block of the batch (the same number of
+    pairs on every rank): the rank plans and builds only its block's
+    targets, and two ``all_gather`` of a few hundred int64 agree what every
+    rank's program shares: the plan statics (ladder, per-class real counts,
+    padded sizes) before the forced plans, then the class budgets, the row
+    budget and the small-unions hint. Every rank thus runs the geometry the
+    whole batch's group plan gives.
 
     ``idx_src`` (per-pair source scan ids) enables the demand-sized row
     budget: the plan's target-occupancy proxy undercounts REAL pairs
@@ -360,55 +435,85 @@ def _batched_pools_host(stack, counts, idx_tgt, radius, k, dtype, idx_src=None,
     the grid-redo splice — correct but a whole second engine pass. The
     returned ``budget_rows`` then covers max-over-pairs real demand.
 
-    Returns None when any pair declines the pooled engine — callers fall
-    back to the batched grid engine.
+    Returns None when any pair (on any rank) declines the pooled engine —
+    callers fall back to the batched grid engine.
     """
     host = _HostPhases() if host is None else host
     uniq_ids = sorted({int(i) for i in idx_tgt})
+    spans.count("batch_targets", len(uniq_ids))
+    smw = _fp._select_max_w(device)
     grids = {}
     with host("batch_grid"):
         for i in uniq_ids:
             # buckets=False: the pooled plan reads only the cell-sorted view.
-            g = build_grid_host(stack[i], radius, num_valid=int(counts[i]), buckets=False)
+            g = build_grid_host(clouds[i], radius, num_valid=int(counts[i]), buckets=False)
             if g is None:
-                return None
+                grids = None
+                break
             grids[i] = g
     with host("batch_plan"):
-        plans = _fp.plan_pool_host_group(
-            [grids[i] for i in uniq_ids], [stack[i] for i in uniq_ids], device=device
-        )
-    if plans is None:
+        members = None if grids is None else ([grids[i] for i in uniq_ids],
+                                              [clouds[i] for i in uniq_ids])
+        statics = None if members is None else _fp.pool_group_statics(*members, device=device)
+        statics = _agree_statics(statics, len(idx_tgt), mesh)
+        force = None if statics is None else _fp.pool_group_force(statics)
+        plans = None if force is None else _fp.plan_pool_host_forced(*members, force,
+                                                                     device=device)
+    if force is None:  # the same on every rank
         return None
     with host("batch_build"):
         np_dtype = np.dtype(dtype)
         pres = {}
-        for i, plan in zip(uniq_ids, plans):
-            pre = _fp.build_pool_prepack(grids[i], stack[i], dtype=np_dtype, plan=plan, k=k,
+        for i, plan in zip(uniq_ids, plans or ()):
+            pre = _fp.build_pool_prepack(grids[i], clouds[i], dtype=np_dtype, plan=plan, k=k,
                                          device=device)
             if pre is None:
-                return None
+                break
             pres[i] = pre
+        n_classes = len(force["widths"])
+        # [declined, class budgets, budget rows, demand], then (target,
+        # sum of min(union, k), windows) a target for the small-unions hint,
+        # a mean over the whole batch's distinct targets.
+        head = 3 + n_classes
+        vec = np.zeros(head + 3 * len(idx_tgt), np.int64)
+        if len(pres) < len(uniq_ids):
+            vec[0] = 1
+        else:
+            vec[1:1 + n_classes] = [max(pres[i].class_budgets[c] for i in uniq_ids)
+                                    for c in range(n_classes)]
+            vec[1 + n_classes] = max(int(pres[i].budget_rows) for i in uniq_ids)
+            if idx_src is not None:
+                plan_of = dict(zip(uniq_ids, plans))
+                vec[2 + n_classes] = max(
+                    _fp.estimate_pool_demand_rows(
+                        plan_of[int(t)], clouds[int(s)], num_valid=int(counts[int(s)])
+                    )
+                    for s, t in zip(idx_src, idx_tgt)
+                )
+            vec[head:] = -1
+            for j, (i, plan) in enumerate(zip(uniq_ids, plans)):
+                u = plan["dil"]["union"]
+                u = u[u > smw]  # only windows of kernel classes count
+                vec[head + 3 * j:head + 3 * j + 3] = i, np.minimum(u, k).sum(), u.size
+        got = _gather_rows(vec, mesh)
+        if got[:, 0].any():
+            return None
+        class_budgets = tuple(int(b) for b in got[:, 1:1 + n_classes].max(axis=0))
+        budget_rows = int(got[:, 1 + n_classes].max())
+        if idx_src is not None:
+            demand = int(got[:, 2 + n_classes].max())
+            budget_rows = max(budget_rows, bucket_rows(int(1.25 * demand), step_bits=3))
+        hint = {int(t): (int(a), int(b)) for t, a, b in got[:, head:].reshape(-1, 3) if t >= 0}
+        su_sum = sum(a for a, _ in hint.values())
+        su_count = sum(b for _, b in hint.values())
 
         first = pres[uniq_ids[0]]
-        n_classes = len(first.class_widths)
         rows = [pres[int(i)] for i in idx_tgt]
 
         def stacked(field):
             return tuple(torch.stack([getattr(r, field)[c] for r in rows])
                          for c in range(n_classes))
 
-        smw = _fp._select_max_w(device)
-        all_unions = np.concatenate([p["dil"]["union"] for p in plans])
-        budget_rows = max(int(pres[i].budget_rows) for i in uniq_ids)
-        if idx_src is not None:
-            plan_of = dict(zip(uniq_ids, plans))
-            demand = max(
-                _fp.estimate_pool_demand_rows(
-                    plan_of[int(t)], stack[int(s)], num_valid=int(counts[int(s)])
-                )
-                for s, t in zip(idx_src, idx_tgt)
-            )
-            budget_rows = max(budget_rows, bucket_rows(int(1.25 * demand), step_bits=3))
         return {
             "select_xyz": stacked("select_xyz"),
             "pool_idx": stacked("pool_idx"),
@@ -418,11 +523,11 @@ def _batched_pools_host(stack, counts, idx_tgt, radius, k, dtype, idx_src=None,
             "dims_d": torch.stack([r.dims_d for r in rows]),
             "class_widths": first.class_widths,
             "class_ends": first.class_ends,
-            "class_budgets": tuple(
-                int(max(pres[i].class_budgets[c] for i in uniq_ids)) for c in range(n_classes)
-            ),
+            "class_budgets": class_budgets,
             "budget_rows": budget_rows,
-            "small_unions": _fp._small_unions(all_unions[all_unions > smw], k),
+            # ops/fused_grid.py::_small_unions over every distinct target's
+            # kernel-class windows: mean(min(union, k)) < 0.75 k.
+            "small_unions": bool(su_count and su_sum / su_count < 0.75 * k),
             "select_max_w": smw,
         }
 
@@ -457,7 +562,9 @@ def run_odometry_batched(
       scans: list of (n_i, 3) numpy arrays.
       mesh: when given, the pair axis is sharded over its "points" axis
         (pairs padded up to a multiple of the axis size with dummy entries);
-        each rank runs its block and the result is gathered on every rank.
+        each rank runs its contiguous block and the result is gathered on
+        every rank. On the pooled engine a rank plans, builds and uploads
+        only its block's pairs.
       dtype: a torch dtype or its name ("float32", "float64").
       search_impl: "auto" (the POOLED engine on a CUDA device when every
         pair supports it, grid otherwise; the JAX package's rule is pool on
@@ -469,11 +576,14 @@ def run_odometry_batched(
       device: where the batch runs: ``mesh.device`` on a mesh, else "cuda"
         unless the CPU is asked for.
       stats: a dict that receives ``engine`` ("pool", "grid" or "brute"),
-        ``host_seconds`` (grids, pool plans and builds, uploads: the sum of
-        the host phases' spans),
-        ``outer_loops`` (loop iterations the batch ran), ``capture_seconds``
-        and ``graphs_captured`` (the LM graphs') and, on the pooled engine,
-        ``class_widths`` and ``redone`` (the pairs the grid engine redid).
+        ``host_seconds`` (this rank's grids, pool plans and builds, uploads:
+        the sum of its host phases' spans, the waits of the agree steps
+        included), ``outer_loops`` (loop iterations the batch ran),
+        ``capture_seconds`` and ``graphs_captured`` (the LM graphs') and,
+        on the pooled engine, ``class_widths``, ``class_ends``,
+        ``class_budgets``, ``budget_rows`` and ``pool_shapes`` (a pair's
+        shape of each stacked pool array: the geometry every rank runs) and
+        ``redone`` (the pairs the grid engine redid).
 
     Returns (poses [len(scans) x 4x4 numpy], BatchedPairResult).
     """
@@ -498,37 +608,30 @@ def _run_batch(scans, *, k, radius, lm_config, n_outer, pad_multiple, mesh, dtyp
     np_dtype = np.dtype(str(dtype).removeprefix("torch."))
     dev = resolve_device(mesh.device if mesh is not None else device or "cuda")
     host = _HostPhases()
-    with host("batch_build"):
-        n_max = max(s.shape[0] for s in scans)
-        rows_pad = ((n_max + pad_multiple - 1) // pad_multiple) * pad_multiple
-        padded, valids = [], []
-        for s in scans:
-            p, n = pad_cloud(np.asarray(s, np.float64), pad_multiple, pad_value=0.0)
-            if p.shape[0] < rows_pad:
-                full = np.zeros((rows_pad, 3))
-                full[: p.shape[0]] = p
-                p = full
-            padded.append(p)
-            valids.append(n)
-        stack = np.stack(padded)
-        counts = np.asarray(valids)
+    b = n_scans - 1
+    d = 1 if mesh is None else mesh.shape[POINTS_AXIS]
+    b_pad = ((b + d - 1) // d) * d
+    idx_src = np.minimum(np.arange(b_pad) + 1, n_scans - 1)
+    idx_tgt = np.minimum(np.arange(b_pad), n_scans - 1)
+    # This rank's contiguous block of the padded pairs (shard_rows' rule):
+    # the pooled engine prepares only its pairs.
+    per = b_pad // d
+    lo = 0 if mesh is None else mesh.index(POINTS_AXIS) * per
+    block = slice(lo, lo + per)
+    clouds = _PaddedScans(scans, pad_multiple)
+    counts = clouds.counts
+    row = np.arange(clouds.rows)
 
-        b = n_scans - 1
-        b_pad = b
-        if mesh is not None:
-            d = mesh.shape[POINTS_AXIS]
-            b_pad = ((b + d - 1) // d) * d
-        idx_src = np.minimum(np.arange(b_pad) + 1, n_scans - 1)
-        idx_tgt = np.minimum(np.arange(b_pad), n_scans - 1)
+    def upload(ids):
+        """The pairs' sources ``ids`` as (B, N, 3) and their valid rows."""
+        return (torch.as_tensor(clouds.stack(ids).astype(np_dtype), device=dev),
+                torch.as_tensor(row[None, :] < counts[ids, None], device=dev))
 
-        row = np.arange(stack.shape[1])
-        sources = torch.as_tensor(stack[idx_src].astype(np_dtype), device=dev)
-        sv = torch.as_tensor(row[None, :] < counts[idx_src, None], device=dev)
     # The (B, N, 3) target stack uploads only for the grid/brute engines —
     # the pooled path's kernel emits the selected neighbors' coordinates
     # and never reads the target clouds.
     def mk_targets():
-        return torch.as_tensor(stack[idx_tgt].astype(np_dtype), device=dev)
+        return torch.as_tensor(clouds.stack(idx_tgt).astype(np_dtype), device=dev)
 
     def mk_tv():
         return torch.as_tensor(row[None, :] < counts[idx_tgt, None], device=dev)
@@ -549,14 +652,19 @@ def _run_batch(scans, *, k, radius, lm_config, n_outer, pad_multiple, mesh, dtyp
 
     pools = grids = None
     if search_impl == "pool" or (search_impl == "auto" and dev.type == "cuda"):
-        pools = _batched_pools_host(stack, counts, idx_tgt, radius, k, np_dtype,
-                                    idx_src=idx_src, device=dev, host=host)
+        with host("batch_build"):
+            sources, sv = upload(idx_src[block])
+        pools = _batched_pools_host(clouds, counts, idx_tgt[block], radius, k, np_dtype,
+                                    idx_src=idx_src[block], device=dev, host=host, mesh=mesh)
         if pools is None and search_impl == "pool":
             raise ValueError("pool engine requested but some pair declines it")
-    if pools is None and search_impl in ("auto", "grid"):
-        grids = _batched_grids_host(stack, counts, idx_tgt, radius, host=host)
-        if grids is None and search_impl == "grid":
-            raise ValueError("grid engine requested but some pair has no grid")
+    if pools is None:
+        if search_impl in ("auto", "grid"):
+            grids = _batched_grids_host(clouds, counts, idx_tgt, radius, host=host)
+            if grids is None and search_impl == "grid":
+                raise ValueError("grid engine requested but some pair has no grid")
+        with host("batch_build"):
+            sources, sv = upload(idx_src)
 
     stats["engine"] = "pool" if pools is not None else "grid" if grids is not None else "brute"
     if pools is not None:
@@ -564,18 +672,24 @@ def _run_batch(scans, *, k, radius, lm_config, n_outer, pad_multiple, mesh, dtyp
             budget = round_up(max(pools["budget_rows"], sources.shape[1] + 4096),
                               2 * BLOCK_GROUPS * GROUP)
             budgets = pools["class_budgets"][:-1] + (budget // GROUP,)
-            arrays = local((sources, sv, pools["select_xyz"], pools["pool_idx"],
-                            pools["class_width_luts"], pools["lut_d"], pools["origin_d"],
-                            pools["dims_d"]))
+            # Already this rank's block: nothing to shard.
+            arrays = (sources, sv, pools["select_xyz"], pools["pool_idx"],
+                      pools["class_width_luts"], pools["lut_d"], pools["origin_d"],
+                      pools["dims_d"])
         stats["host_seconds"] = host.seconds
         stats["class_widths"] = pools["class_widths"]
+        stats["class_ends"] = pools["class_ends"]
+        stats["class_budgets"] = budgets
+        stats["budget_rows"] = budget
+        stats["pool_shapes"] = tuple(tuple(x.shape[1:]) for x in arrays[2:] for x in (
+            x if isinstance(x, tuple) else (x,)))
         with spans.span("batch_loop"):
             result = batched_pair_register_pool(
                 *arrays, class_widths=pools["class_widths"], class_ends=pools["class_ends"],
                 class_budgets=budgets, budget_rows=budget, small_unions=pools["small_unions"],
                 select_max_w=pools["select_max_w"], **rule,
             )
-        del arrays, pools
+        del arrays, pools, sources, sv
     elif grids is not None:
         with host("batch_build"):
             tables, cap = grid_arrays(grids)
@@ -605,17 +719,19 @@ def _run_batch(scans, *, k, radius, lm_config, n_outer, pad_multiple, mesh, dtyp
             # are invalid; redo them on the batched grid engine and splice
             # (the batched analogue of the single-pair mid-pair fallback).
             with spans.span("batch_redo"):
-                sub = _batched_grids_host(stack, counts, idx_tgt[bad], radius, host=host)
+                # Replicated on every rank, over pairs of every block.
+                sub = _batched_grids_host(clouds, counts, idx_tgt[bad], radius, host=host)
                 if sub is None:
                     raise RuntimeError("pooled budget overflow and no grid fallback available")
                 with host("batch_build"):
                     tables, cap = grid_arrays(sub)
                     sel = torch.as_tensor(bad, device=dev)
-                    redo_src = torch.as_tensor(stack[idx_src[bad]].astype(np_dtype), device=dev)
-                    redo_tgt = torch.as_tensor(stack[idx_tgt[bad]].astype(np_dtype), device=dev)
+                    redo_src, redo_sv = upload(idx_src[bad])
+                    redo_tgt = torch.as_tensor(clouds.stack(idx_tgt[bad]).astype(np_dtype),
+                                               device=dev)
                 stats["host_seconds"] = host.seconds
                 redo = batched_pair_register_grid(
-                    redo_src, redo_tgt, sv[sel], *tables, capacity=cap, **rule)
+                    redo_src, redo_tgt, redo_sv, *tables, capacity=cap, **rule)
                 # Keep the pooled flags: nonzero now reads as "this pair was
                 # redone on the grid engine" (results valid).
                 result = BatchedPairResult(*(

@@ -33,6 +33,7 @@ graph. The backend itself is chosen before the group is initialized
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional, Sequence
 
@@ -168,15 +169,16 @@ class Mesh:
         """``lax.pmean``."""
         return self.psum(x, axis) / self.shape[axis]
 
-    def all_gather(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+    def all_gather(self, x: torch.Tensor, axis: str, span: bool = True) -> torch.Tensor:
         """``lax.all_gather``: (axis size, *x.shape), index i from the rank
-        at coordinate i. The span ``all_gather`` holds the wait on the
+        at coordinate i. The span ``all_gather`` (none with ``span``
+        False: the caller's own span holds it) holds the wait on the
         slowest rank where the backend waits on the host (``gloo``); NCCL
         only enqueues, and the wait falls on the result's first read."""
         group = self._groups.get(axis)
         if group is None:
             return x[None]
-        with spans.span("all_gather"):
+        with spans.span("all_gather") if span else contextlib.nullcontext():
             y = self._stage(x)
             parts = [torch.empty_like(y) for _ in range(self.shape[axis])]
             dist.all_gather(parts, y, group=group)

@@ -352,17 +352,46 @@ def test_batched_step_matches_per_pair_and_ignores_the_batch(dtype):
     assert int(state.iteration[1]) == 0 and bool(state.done.all())
 
 
+def _hot_sequence():
+    """The 5-scan sequence with scan 3 seen twice (2 cm apart) and a blob
+    of 40 points in it: the second rank's block (pairs 2-3, targets 2 and
+    3) plans a wider class ladder (64 lanes against 16) and a larger row
+    budget than the other blocks."""
+    scans = _sequence(5)[0]
+    rng = np.random.default_rng(3)
+    blob = rng.normal(scale=0.2, size=(40, 3)) + scans[3][700]
+    again = scans[3] + rng.normal(scale=0.02, size=scans[3].shape)
+    return scans[:3] + [np.concatenate([scans[3], blob, again]), scans[4]]
+
+
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
-    """One group of 3 gloo processes: 5 scans (4 pairs, padded to 6)."""
+    """One group of 3 gloo processes: 5 scans (4 pairs, padded to 6); the
+    pooled batch also on the hot sequence, and with its budgets starved,
+    so that the grid engine redoes pairs of every rank's block on every
+    rank."""
     cfg = TConfig(dof=5.0, max_iterations=25)
+    pool = dict(dp=3, radius=0.5, dtype="float32", search_impl="pool", lm_config=cfg)
     cases = [
         ("batch_odometry", dict(dp=3, scans=5, radius=1.0, dtype="float64",
                                 search_impl="brute", lm_config=cfg, tag="brute", **KW)),
-        ("batch_odometry", dict(dp=3, scans=5, radius=0.5, dtype="float32",
-                                search_impl="pool", lm_config=cfg, tag="pool", **KW)),
+        ("batch_odometry", dict(**pool, scans=5, tag="pool", **KW)),
+        ("batch_odometry", dict(**pool, scans=_hot_sequence(), tag="hot", **KW)),
+        ("batch_odometry", dict(**pool, scans=5, tag="redo", starved=True, **KW)),
     ]
     return W.run_group(3, cases, tmp_path_factory.mktemp("batch3"), timeout=300)
+
+
+def _unsharded_pool(monkeypatch, scans, starved=False):
+    """The sharded fixture's pooled batch on one device, no mesh."""
+    if starved:
+        monkeypatch.setattr(TB, "_batched_pools_host",
+                            W.starved_pools(TB._batched_pools_host))
+    stats = {}
+    poses, res = TB.run_odometry_batched(
+        scans, lm_config=TConfig(dof=5.0, max_iterations=25), search_impl="pool",
+        device="cpu", radius=0.5, dtype="float32", stats=stats, **KW)
+    return poses, res, stats
 
 
 @pytest.mark.parametrize("impl,atol", [("brute", 1e-9), ("pool", 1e-6)])
@@ -387,3 +416,54 @@ def test_sharded_batch_matches_unsharded(sharded, impl, atol):
     np.testing.assert_array_equal(runs[0]["result"]["num_correspondences"][:4],
                                   res.num_correspondences.numpy())
     assert not any(r["_jax_loaded"] for r in sharded)
+
+
+@pytest.mark.parametrize("tag", ["pool", "hot"])
+def test_sharded_ranks_plan_only_their_blocks_and_agree_the_geometry(sharded, monkeypatch, tag):
+    """Each rank plans its block's distinct targets (the count
+    ``batch_targets``: pairs 0-1, 2-3 and the two padded pairs, whose
+    target is the last scan), and every rank runs the geometry of the
+    whole batch's plan: on the hot sequence the first two ranks take the
+    last block's wider classes. Every rank's answer is the unsharded
+    one's."""
+    scans = _sequence(5)[0] if tag == "pool" else _hot_sequence()
+    poses, res, stats = _unsharded_pool(monkeypatch, scans)
+    if tag == "hot":
+        assert stats["class_widths"][0] == 64
+    idx_tgt = np.minimum(np.arange(6), 4)
+    for rank, r in enumerate(sharded):
+        block = idx_tgt[2 * rank:2 * rank + 2]
+        assert r[tag]["counts"]["batch_targets"] == len(set(block.tolist()))
+        for key in ("class_widths", "class_ends", "class_budgets", "budget_rows",
+                    "pool_shapes"):
+            assert r[tag]["stats"][key] == stats[key], (rank, key)
+        for name, x in r[tag]["result"].items():
+            np.testing.assert_array_equal(x, sharded[0][tag]["result"][name])
+    assert [r[tag]["counts"]["batch_targets"] for r in sharded] == [2, 2, 1]
+    for a, b in zip(sharded[0][tag]["poses"], poses):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(sharded[0][tag]["result"]["num_correspondences"][:4],
+                                  res.num_correspondences.numpy())
+
+
+def test_sharded_starved_redo_matches_unsharded(sharded, monkeypatch):
+    """The grid engine's redo on the mesh reads pairs outside each rank's
+    block; every rank redoes the same pairs and is held to the unsharded
+    starved run at the pool's limit."""
+    poses, res, stats = _unsharded_pool(monkeypatch, _sequence(5)[0], starved=True)
+    assert stats["redone"], "the starved budgets must trigger the redo"
+    runs = [r["redo"] for r in sharded]
+    for r in runs:
+        np.testing.assert_array_equal(r["poses"], runs[0]["poses"])
+        for name, x in r["result"].items():
+            np.testing.assert_array_equal(x, runs[0]["result"][name])
+        assert r["stats"]["redone"] == runs[0]["stats"]["redone"]
+    redone = runs[0]["stats"]["redone"]
+    assert [i for i in redone if i < 4] == stats["redone"]
+    assert len({i // 2 for i in redone}) > 1, "redone pairs of more than one block"
+    for a, b in zip(runs[0]["poses"], poses):
+        np.testing.assert_allclose(a, b, atol=1e-6, rtol=0)
+    np.testing.assert_array_equal(runs[0]["result"]["num_correspondences"][:4],
+                                  res.num_correspondences.numpy())
+    np.testing.assert_array_equal(runs[0]["result"]["overflow"][:4] > 0,
+                                  res.overflow.numpy() > 0)

@@ -2,7 +2,7 @@
 JAX package's, on the same numpy inputs.
 
 The host plans (``plan_pool_host(force=)``, ``_ladder_ends``,
-``plan_pool_host_group``, the shard-layout chooser, the sharded pool and
+``plan_pool_host_group`` and its halves merged over blocks of a group, the shard-layout chooser, the sharded pool and
 grid plans, the demand replay), ``pad_for_mesh``, ``merge_topk`` on stacked
 per-shard lists with exact ties, and the rank layout against
 ``make_mesh(dp, tp).devices`` are held equal bit for bit. Without a process
@@ -136,6 +136,50 @@ def test_plan_pool_host_group_and_force_equal_jax(name, n_shards):
                  u_pad=1 << 20, n_pad=1 << 20, ud_b=1 << 20)
     assert j_fp.plan_pool_host(jg[0], targets[0], force=force) is None
     assert t_fp.plan_pool_host(tg[0], targets[0], force=force, device="cpu") is None
+
+
+def _group_of_six():
+    """Six targets: the slab's three shards (ladders [16, 8] and
+    [32, 16, 8]) and the hot sheet's three ([128, 64, 32, 16, 8])."""
+    grids, targets = [], []
+    for name in ("slab", "hot"):
+        rows_of, _, tg = _shard_grids(TARGETS[name], 3)
+        grids += tg
+        targets += [TARGETS[name][r] for r in rows_of]
+    return grids, targets
+
+
+# Blocks of the six targets, as ranks of a batch hold them: in "halves"
+# and "three" a block lacks width classes that another block has.
+GROUP_SPLITS = {"halves": [[0, 1, 2], [3, 4, 5]], "three": [[0], [1, 2], [3, 4, 5]],
+                "interleaved": [[0, 3], [1, 4], [2, 5]]}
+
+
+@pytest.mark.parametrize("split", sorted(GROUP_SPLITS))
+def test_merged_block_statics_give_the_group_plan(split):
+    """The blocks' statics (``pool_group_statics``), merged, give the
+    ``force`` the whole group's plan was made with (read back from its
+    plans), and each block's forced plans equal the group's, array for
+    array."""
+    grids, targets = _group_of_six()
+    whole = t_fp.plan_pool_host_group(grids, targets, device="cpu")
+    p = whole[0]
+    want = {"widths": tuple(p["widths"]), "pad_sizes": tuple(np.diff([0] + list(p["ends"]))),
+            "prod_d_pad": p["prod_d_pad"], "prod_e_pad": p["prod_e_pad"],
+            "u_pad": p["base_e"].shape[0], "n_pad": p["packed"].shape[0] - 1,
+            "ud_b": p["row_vals"].shape[0]}
+    blocks = GROUP_SPLITS[split]
+    parts = [t_fp.pool_group_statics([grids[i] for i in b], [targets[i] for i in b],
+                                     device="cpu") for b in blocks]
+    force = t_fp.pool_group_force(t_fp.merge_pool_statics(parts))
+    assert force == want
+    alone = [t_fp.pool_group_force(part)["widths"] for part in parts]
+    assert (alone != [force["widths"]] * len(blocks)) == (split != "interleaved")
+    for b in blocks:
+        got = t_fp.plan_pool_host_forced([grids[i] for i in b], [targets[i] for i in b], force,
+                                         device="cpu")
+        for i, plan in zip(b, got):
+            _eq_tree(plan, whole[i], f"target {i}")
 
 
 @pytest.mark.parametrize("stats", [(4000, 4000, 900, 4, 2), (131072, 131072, 52000, 8, 4),

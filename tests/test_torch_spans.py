@@ -294,6 +294,8 @@ def test_a_batch_records_its_phases_and_host_seconds(monkeypatch, impl):
     if impl in ("pool", "redo"):
         (count,) = got["redo_pairs"]
         assert count.parent == root.id and count.count == len(redone)
+        (targets,) = got["batch_targets"]
+        assert targets.parent == root.id and targets.count == len(_pair_clouds()) - 1
     else:
         assert "redo_pairs" not in got
     if impl == "redo":

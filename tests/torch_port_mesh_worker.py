@@ -497,22 +497,24 @@ def odometry(device, dp: int, tp: int, workdir: str):
 
 
 @case
-def batch_odometry(device, dp: int, scans, **kw):
+def batch_odometry(device, dp: int, scans, starved: bool = False, **kw):
     """run_odometry_batched on a dp x 1 mesh: ``scans`` is a directory of
-    KITTI ``.bin`` scans, or the scan count of :func:`wave_sequence`; ``kw``
-    its keyword arguments. Returns the poses, the result's fields, its
-    stats and the kernel launches."""
+    KITTI ``.bin`` scans, the scan count of :func:`wave_sequence`, or a list
+    of (n, 3) arrays; ``kw``
+    its keyword arguments; ``starved`` runs it with :func:`starved_pools`.
+    Returns the poses, the result's fields, its stats, the kernel launches
+    and the program's counts of the call (name -> sum)."""
     from probabilistic_point_clouds_registration_tpu_torch.io.kitti import (
         list_velodyne_scans,
         load_velodyne_bin,
     )
-    from probabilistic_point_clouds_registration_tpu_torch.parallel import make_mesh
-    from probabilistic_point_clouds_registration_tpu_torch.parallel.batch import (
-        run_odometry_batched,
-    )
+    from probabilistic_point_clouds_registration_tpu_torch.parallel import batch, make_mesh
+    from probabilistic_point_clouds_registration_tpu_torch.utils import spans
 
     if isinstance(scans, int):
         clouds = wave_sequence(scans)
+    elif isinstance(scans, list):
+        clouds = scans
     else:
         clouds = [load_velodyne_bin(p).astype(np.float64) for p in list_velodyne_scans(scans)]
     mesh = make_mesh(dp, 1, device=device)
@@ -521,12 +523,23 @@ def batch_odometry(device, dp: int, scans, **kw):
     for fn in counters.values():
         fn.launches = 0
     stats = {}
+    real = batch._batched_pools_host
+    if starved:
+        batch._batched_pools_host = starved_pools(real)
+    t0_ns = time.perf_counter_ns()
     t0 = time.perf_counter()
-    poses, result = run_odometry_batched(clouds, mesh=mesh, stats=stats, **kw)
+    try:
+        poses, result = batch.run_odometry_batched(clouds, mesh=mesh, stats=stats, **kw)
+    finally:
+        batch._batched_pools_host = real
     _sync(device)
+    counts = {}
+    for r in spans.records()[0]:
+        if r.count is not None and r.start_ns >= t0_ns:
+            counts[r.name] = counts.get(r.name, 0) + r.count
     return {"poses": np.array(poses), "seconds": time.perf_counter() - t0, "stats": stats,
             "result": {name: _np(x) for name, x in result._asdict().items()},
-            "launches": {key: fn.launches for key, fn in counters.items()}}
+            "launches": {key: fn.launches for key, fn in counters.items()}, "counts": counts}
 
 
 @case
