@@ -943,7 +943,7 @@ def _batch_flattening(torch, pb, clouds, params, counted, smi) -> None:
     the same passes launched pair by pair and stacked; B2 on one flattened
     block of the batched grid engine against its twin. Its tensors die with
     the call."""
-    from probabilistic_point_clouds_registration_tpu_torch.core.types import pad_cloud, round_up
+    from probabilistic_point_clouds_registration_tpu_torch.core.types import pad_cloud
     from probabilistic_point_clouds_registration_tpu_torch.ops import fused_grid as fg
     from probabilistic_point_clouds_registration_tpu_torch.ops import fused_pool as fp
     from probabilistic_point_clouds_registration_tpu_torch.ops import grid as tgrid
@@ -965,12 +965,9 @@ def _batch_flattening(torch, pb, clouds, params, counted, smi) -> None:
     sources = torch.as_tensor(stack[idx_src].astype(np.float32), device="cuda")
     sv = torch.arange(stack.shape[1], device="cuda")[None, :] < torch.as_tensor(
         counts[idx_src], device="cuda")[:, None]
-    budget = round_up(max(pools["budget_rows"], stack.shape[1] + 4096),
-                      2 * fg.BLOCK_GROUPS * fg.GROUP)
     search = dict(radius=radius, class_widths=pools["class_widths"],
-                  class_ends=pools["class_ends"],
-                  class_budgets=pools["class_budgets"][:-1] + (budget // fg.GROUP,),
-                  budget_rows=budget, small_unions=pools["small_unions"],
+                  class_ends=pools["class_ends"], class_budgets=pools["class_budgets"],
+                  budget_rows=pools["budget_rows"], small_unions=pools["small_unions"],
                   select_max_w=pools["select_max_w"])
     tables = (pools["select_xyz"], pools["pool_idx"], pools["class_width_luts"],
               pools["lut_d"], pools["origin_d"], pools["dims_d"])
@@ -1712,11 +1709,12 @@ def main() -> None:
     kk = kreg.params.max_neighbours
     got = npal.brute_knn(*ka, k=kk)
     torch.cuda.synchronize()
-    for r0 in range(0, ka[0].shape[0], 4096):  # every row, a slice at a time
-        rows = slice(r0, r0 + 4096)
+    tile = 4096
+    for r0 in range(0, ka[0].shape[0], tile):  # every row, a slice at a time
+        rows = slice(r0, r0 + tile)
         want = npal._brute_knn_plain(ka[0][rows], ka[1], ka[2], k=kk)
         _equal_bits([("indices", got[0][rows], want[0]), ("d2", got[1][rows], want[1])],
-                    f"B3 kitti131k rows {r0}-{r0 + 4095}")
+                    f"B3 kitti131k rows {r0}-{r0 + tile - 1}")
     kitti_b3_ms = _cuda_ms(lambda: npal.brute_knn(*ka, k=kk), reps=3)
     kitti_pairs = ka[0].shape[0] * int(ka[2].sum())
     print(f"B3 kitti131k, one search {ka[0].shape[0]} x {ka[1].shape[0]}, k {kk}: "

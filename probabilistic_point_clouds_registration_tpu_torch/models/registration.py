@@ -79,7 +79,7 @@ from ..core.se3 import (
     quat_rotate_points,
     unit_quat_rotate,
 )
-from ..core.types import bucket_rows, pad_cloud, round_up
+from ..core.types import pad_cloud
 from ..ops import fused_grid as _fg
 from ..ops import fused_pool as _fp
 from ..ops.grid import (
@@ -410,9 +410,7 @@ class ProbabilisticRegistration:
             demand, self._pool_class_cum = _fp.estimate_pool_demand_rows(
                 plan, moved0, class_row_ends=pool.class_ends
             )
-            self._pool_budget_base = max(
-                pool.budget_rows, bucket_rows(int(1.25 * demand), step_bits=3)
-            )
+            self._pool_budget_base = _fp.demand_row_budget(pool.budget_rows, demand)
             self._pool = pool
             self.out << (
                 f"Pooled engine: {pool.n_dilated} dilated cells, "
@@ -452,17 +450,10 @@ class ProbabilisticRegistration:
         """The pooled search's (row budget, class-prefix budgets) at the
         current escalation rung (registration.py:1331-1362 of the JAX
         package)."""
-        # Boost the EFFECTIVE budget (the source-rows floor may dominate).
-        budget = round_up(
-            max(self._pool_budget_base, self._src.shape[0] + 4096)
-            << self._pool_budget_boost,
-            2048,
+        return _fp.search_budgets(
+            self._pool_budget_base, self._src.shape[0], cum_groups=self._pool_class_cum,
+            boost=self._pool_budget_boost, row_step=2048,
         )
-        ng_b = round_up(budget, 2 * _fg.BLOCK_GROUPS * _fg.GROUP) // _fg.GROUP
-        class_budgets = _fp.demand_class_budgets(
-            self._pool_class_cum, ng_b, boost=self._pool_budget_boost, cap=ng_b
-        )
-        return budget, class_budgets
 
     def _pool_search(self, moved):
         """One pooled search at the current escalation rung:

@@ -353,11 +353,17 @@ def build_prepack(grid_host: dict, bucket_pts: torch.Tensor,
     )
 
 
+def small_unions_of(part, k: int) -> bool:
+    """The small-unions hint from ``part`` = [sum of min(union, k),
+    windows], which adds over the windows of several targets: True when
+    that mean is below 0.75 k."""
+    total, windows = (int(x) for x in part)
+    return bool(windows and total / windows < 0.75 * k)
+
+
 def _small_unions(union: np.ndarray, k: int) -> bool:
-    """True when the mean of min(union, k) is below 0.75 k."""
-    if union.size == 0:
-        return False
-    return bool(np.mean(np.minimum(union, k)) < 0.75 * k)
+    """:func:`small_unions_of` one plan's windows."""
+    return small_unions_of((np.minimum(union, k).sum(), union.size), k)
 
 
 def _group_by_window(source, source_valid, lut_d, origin_d, dims_d, ud,

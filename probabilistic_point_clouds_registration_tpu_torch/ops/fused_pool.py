@@ -51,7 +51,7 @@ from .fused_grid import (
     GROUP,
     _BIG,
     _select_windows_plain,
-    _small_unions,
+    small_unions_of,
     _unsort_results,
     dilate_cells_host,
     pack_row_meta,
@@ -751,74 +751,149 @@ def plan_pool_host_group(grids: list, targets: list, *, select_max_w: int | None
     return None if force is None else plan_pool_host_forced(grids, targets, force, **kw)
 
 
+# -- sizing: the budgets of every pooled search (pair, batch, sharded) -------
+
+# Margin over a replay's measured demand, rows and class groups alike.
+DEMAND_MARGIN = 1.25
+# The row budget's floor above the source's own rows.
+SOURCE_ROW_SLACK = 4096
+# The floor, per source row, of a row budget that no replay sized: target
+# sharding thins per-window source occupancy toward 1, and a window holding
+# s sources costs at most s + 7 rows.
+UNDEMANDED_ROWS_PER_SOURCE = 8
+
+
+class ReplayKeys(NamedTuple):
+    """What :func:`pool_demand` reads of a plan (:meth:`of`) or of a shard's
+    seeds; padded tails (cell id ``prod_d_pad``, key -1) drop out."""
+
+    d_cells: np.ndarray
+    qmeta_vals: np.ndarray
+    prod_d_pad: int
+    dims_d: np.ndarray
+    origin_d: np.ndarray
+    cell_size: float
+
+    @classmethod
+    def of(cls, plan: dict) -> "ReplayKeys":
+        dil = plan["dil"]
+        return cls(plan["d_cells"], plan["qmeta_vals"], plan["prod_d_pad"], dil["dims_d"],
+                   dil["origin_d"], plan["cell_size"])
+
+
+def pool_demand(pairs, class_row_ends=()) -> tuple[int, list]:
+    """EXACT padded-row demand of ``_group_by_row`` over several
+    ``(ReplayKeys, source)`` pairs: the most rows any pair demands, and per
+    class c (``class_row_ends``: the pool-row ends per class) the most
+    groups any pair has in classes <= c.
+
+    A plan's row budget assumes sources land like targets; moved sources
+    also fall in dilated shell cells whose center-count proxy is 0. This
+    replays the grouping arithmetic in numpy: per (pool row, segment)
+    source counts -> per row ``GROUP * max_i ceil(c_i / gseg)``.
+    """
+    rows, cum = 0, [0] * len(class_row_ends)
+    for key, source in pairs:
+        pts = np.asarray(source, dtype=np.float64)
+        dims_d = np.asarray(key.dims_d, dtype=np.int64)
+        ijk = np.floor((pts - np.asarray(key.origin_d)) / float(key.cell_size)).astype(np.int64)
+        inb = np.all((ijk >= 0) & (ijk < dims_d), axis=1)
+        lin = ijk[inb, 0] + dims_d[0] * (ijk[inb, 1] + dims_d[1] * ijk[inb, 2])
+        lut = np.full(int(key.prod_d_pad) + 1, -1, np.int64)
+        lut[key.d_cells] = key.qmeta_vals
+        q = lut[lin]
+        q = q[q >= 0]
+        if q.size == 0:
+            continue
+        # Rows are the high bits, so unique's sorted output is row-contiguous.
+        keys, counts = np.unique(q, return_counts=True)
+        contrib = -(-counts // (1 << ((keys >> 3) & 3)))
+        pool_rows = keys >> 9
+        starts = np.flatnonzero(np.diff(pool_rows, prepend=pool_rows[0] - 1))
+        per_row_max = np.maximum.reduceat(contrib, starts)
+        rows = max(rows, int(GROUP * per_row_max.sum()))
+        row_ids = pool_rows[starts]
+        cum = [max(c, int(per_row_max[row_ids < int(e)].sum()))
+               for c, e in zip(cum, class_row_ends)]
+    return rows, cum
+
+
 def estimate_pool_demand_rows(plan: dict, source: np.ndarray,
                               num_valid: int | None = None,
                               class_row_ends: tuple | None = None):
-    """EXACT padded-row demand of ``_group_by_row`` for a real source cloud.
-
-    The plan's row budget assumes sources land like targets; moved sources
-    also fall in dilated shell cells whose center-count proxy is 0. This
-    replays the grouping arithmetic in numpy: per (pool row, segment)
-    source counts -> per row ``GROUP * max_i ceil(c_i / gseg)``. Callers
-    size the search budget from it.
-
-    ``class_row_ends`` (the prepack's pool-row ends per class) switches the
-    return to ``(rows, cum_groups)``, ``cum_groups[c]`` the measured group
-    count of classes <= c (for :func:`demand_class_budgets`).
-    """
-    dil = plan["dil"]
+    """:func:`pool_demand` of one plan and the first ``num_valid`` rows of
+    ``source``: the rows, or ``(rows, cum_groups)`` with ``class_row_ends``
+    (the prepack's pool-row ends per class)."""
     n = num_valid if num_valid is not None else source.shape[0]
-    pts = np.asarray(source[:n], dtype=np.float64)
-    dims_d = np.asarray(dil["dims_d"], dtype=np.int64)
-    cell = float(plan["cell_size"])
-    ijk = np.floor((pts - np.asarray(dil["origin_d"])) / cell).astype(
-        np.int64
-    )
-    inb = np.all((ijk >= 0) & (ijk < dims_d), axis=1)
-    lin = ijk[inb, 0] + dims_d[0] * (ijk[inb, 1] + dims_d[1] * ijk[inb, 2])
-    size = int(plan["prod_d_pad"]) + 1
-    lut = np.full(size, -1, np.int64)
-    d_cells = plan["d_cells"]
-    lut[d_cells] = plan["qmeta_vals"]
-    q = lut[lin]
-    q = q[q >= 0]
-    if q.size == 0:
-        if class_row_ends is not None:
-            return 0, [0] * len(class_row_ends)
-        return 0
-    # Rows are the high bits, so unique's sorted output is row-contiguous.
-    keys, counts = np.unique(q, return_counts=True)
-    gseg = 1 << ((keys >> 3) & 3)
-    contrib = -(-counts // gseg)
-    rows = keys >> 9
-    starts = np.flatnonzero(np.diff(rows, prepend=rows[0] - 1))
-    per_row_max = np.maximum.reduceat(contrib, starts)
-    total = int(GROUP * per_row_max.sum())
-    if class_row_ends is not None:
-        row_ids = rows[starts]
-        cum = [
-            int(per_row_max[row_ids < int(e)].sum()) for e in class_row_ends
-        ]
-        return total, cum
-    return total
+    rows, cum = pool_demand([(ReplayKeys.of(plan), source[:n])],
+                            () if class_row_ends is None else class_row_ends)
+    return rows if class_row_ends is None else (rows, cum)
+
+
+def demand_row_budget(plan_rows: int, demand_rows: int) -> int:
+    """The row budget at rung 0: the plans' own ``plan_rows``, raised to
+    the replayed demand with its margin in ~25% buckets (per-pair demand
+    jitters, and the budget is a static of the search)."""
+    return max(int(plan_rows), _bucket_rows(int(DEMAND_MARGIN * demand_rows), step_bits=3))
 
 
 def demand_class_budgets(
     cum_groups, last_budget: int, *, boost: int = 0, cap: int | None = None
 ) -> tuple:
     """Class-PREFIX budgets from a grouping replay's per-class cumulative
-    group counts: 1.25x margin, ~25% buckets with a 1024-group floor,
+    group counts: the demand margin, ~25% buckets with a 1024-group floor,
     rounded to the block multiple and ``boost``-shifted so the overflow
     escalation raises the class budgets too. ``cap`` bounds each entry; the
     last class always gets ``last_budget``."""
     out = []
     for c in cum_groups[:-1]:
         b = round_up(
-            _bucket_rows((int(1.25 * c) << boost) + 4 * BLOCK_GROUPS, 1024, 3),
+            _bucket_rows((int(DEMAND_MARGIN * c) << boost) + 4 * BLOCK_GROUPS, 1024, 3),
             BLOCK_GROUPS,
         )
         out.append(min(cap, b) if cap is not None else b)
     return tuple(out) + (last_budget,)
+
+
+def plan_budgets(plans: list) -> tuple[int, tuple]:
+    """Plans of one shared layout: their own row budget and class-prefix
+    budgets, each the maximum over the plans."""
+    return (max(int(p["budget_rows"]) for p in plans),
+            tuple(int(b) for b in np.max([p["budgets"] for p in plans], axis=0)))
+
+
+def small_unions_part(plan: dict, k: int, select_max_w: int) -> np.ndarray:
+    """One plan's part of the small-unions hint, [sum of min(union, k),
+    windows] over its kernel-class windows (union > ``select_max_w``):
+    parts of distinct targets add, and ``fused_grid.small_unions_of``
+    reads their sum."""
+    u = plan["dil"]["union"]
+    u = u[u > select_max_w]
+    return np.array([np.minimum(u, k).sum(), u.size], np.int64)
+
+
+def search_budgets(base_rows: int, source_rows: int, *, class_budgets: tuple | None = None,
+                   cum_groups=None, boost: int = 0, row_step: int = 2 * BLOCK_GROUPS * GROUP,
+                   demand_sized: bool = True, inflate: bool = False) -> tuple[int, tuple]:
+    """The pooled search's ``(budget_rows, class_budgets)`` at rung ``boost``.
+
+    Rows: ``base_rows`` floored at ``source_rows`` + SOURCE_ROW_SLACK (at
+    UNDEMANDED_ROWS_PER_SOURCE x ``source_rows`` when no replay sized
+    ``base_rows``), doubled per rung with the floor (the floor may
+    dominate), rounded up to ``row_step``. Classes: the last spans every
+    group; the others are a replay's ``cum_groups`` margined at the rung,
+    or the rung-0 ``class_budgets``, grown with the rows over ``base_rows``
+    when ``inflate``; none exceeds the last.
+    """
+    floor = (source_rows + SOURCE_ROW_SLACK if demand_sized
+             else UNDEMANDED_ROWS_PER_SOURCE * source_rows)
+    budget = round_up(max(base_rows, floor) << boost, row_step)
+    ng = round_up(budget, 2 * BLOCK_GROUPS * GROUP) // GROUP
+    if cum_groups is not None:
+        return budget, demand_class_budgets(cum_groups, ng, boost=boost, cap=ng)
+    scale = max(1, -(-budget // max(base_rows, 1))) if inflate else 1
+    return budget, tuple(
+        min(ng, round_up(b * scale, BLOCK_GROUPS)) for b in class_budgets[:-1]) + (ng,)
 
 
 def pool_seed_host(plan: dict, dtype=np.float32) -> dict:
@@ -1091,8 +1166,7 @@ def build_pool_prepack(
         budget_rows=plan["budget_rows"],
         n_dilated=dil["n_dilated"],
         cell_size=plan["cell_size"],
-        # Only windows of kernel classes (w > cutoff) count for the hint.
-        small_unions=_small_unions(dil["union"][dil["union"] > smw], k),
+        small_unions=small_unions_of(small_unions_part(plan, k, smw), k),
         select_max_w=smw,
         select_xyz=tuple(p.float().contiguous() for p in pool_xyz),
         class_width_luts=tuple(

@@ -28,10 +28,10 @@ import torch
 
 from ..core.params import RegistrationParams
 from ..core.se3 import np_quat_to_matrix
-from ..core.types import bucket_rows, round_up
+from ..core.types import round_up
 from ..models.em_lm import LM_BLOCK, LMBlocks
 from ..models.registration import ProbabilisticRegistration
-from ..ops.fused_pool import _select_max_w, demand_class_budgets
+from ..ops.fused_pool import _select_max_w
 from ..ops.voxel import voxel_downsample
 from .grid_sharded import build_sharded_grid_host, grid_shard_to_device, \
     make_sharded_grid_align_scan
@@ -40,7 +40,7 @@ from .pool_sharded import (
     build_sharded_pool_host,
     build_sharded_pools_device,
     choose_pool_shard_layout,
-    estimate_sharded_demand_rows,
+    demand_sized_plan,
     make_sharded_pool_align_scan,
     pack_sharded_pools,
     share_sharded_pools,
@@ -194,13 +194,7 @@ class DistributedRegistration(ProbabilisticRegistration):
         if prepared_target is not None:
             self._sp = prepared_target["sp"]
             if self._sp is not None:
-                demand, cum = estimate_sharded_demand_rows(self._sp, slices, with_classes=True)
-                self._sp = self._sp._replace(
-                    budget_rows=max(self._sp.budget_rows,
-                                    bucket_rows(int(1.25 * demand), step_bits=3)),
-                    class_budgets=demand_class_budgets(cum, self._sp.class_budgets[-1]),
-                    demand_sized=True,
-                )
+                self._sp = demand_sized_plan(self._sp, slices)
         else:
             self._sp = build_sharded_pool_host(
                 self.target_cloud, params.radius, tp, num_valid=self.target_cloud.shape[0],

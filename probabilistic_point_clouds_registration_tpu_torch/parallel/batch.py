@@ -67,10 +67,10 @@ from ..core.se3 import (
     quat_rotate_points,
     unit_quat_rotate,
 )
-from ..core.types import bucket_rows, round_up
+from ..core.types import round_up
 from ..models.em_lm import LMBlocks, LMConfig
 from ..ops import fused_pool as _fp
-from ..ops.fused_grid import BLOCK_GROUPS, GROUP
+from ..ops.fused_grid import small_unions_of
 from ..ops.grid import batched_grid_radius_search, build_grid_host, pick_source_tile
 from ..ops.neighbors import radius_search
 from ..utils import spans
@@ -375,65 +375,74 @@ def _batched_grids_host(clouds, counts, idx_tgt, radius, host: Optional[_HostPha
     return bp, bi, luts, origins, dims, cap
 
 
-def _gather_rows(vec, mesh: Mesh | None) -> np.ndarray:
-    """Every rank's int64 vector ``vec`` (one length on every rank) in rank
-    order over "points", (ranks, len): one ``all_gather`` in the span
-    ``batch_agree``, read back on the host (the wait on the slowest rank);
-    (1, len) without a mesh."""
-    vec = np.asarray(vec, np.int64)
-    if mesh is None:
-        return vec[None]
-    with spans.span("batch_agree"):
-        x = torch.as_tensor(vec, device=mesh.device)
-        return mesh.all_gather(x, POINTS_AXIS, span=False).cpu().numpy()
+def _agree(mesh: Mesh | None, **fields) -> dict:
+    """This rank's named int64 fields merged with every rank's over
+    "points", from one ``all_gather`` in the span ``batch_agree``, read
+    back on the host (the wait on the slowest rank). Each field is ``(rule,
+    value)``, the value one shape on every rank; the rule merges the ranks'
+    values: "max" elementwise, "each" their (ranks, ...) stack, "distinct"
+    rows keyed by their first column (-1: none) summed over distinct keys.
+    Without a mesh this rank is every rank."""
+    vals = [np.asarray(value, np.int64) for _, value in fields.values()]
+    got = np.concatenate([v.ravel() for v in vals])[None]
+    if mesh is not None:
+        with spans.span("batch_agree"):
+            x = torch.as_tensor(got[0], device=mesh.device)
+            got = mesh.all_gather(x, POINTS_AXIS, span=False).cpu().numpy()
+    out, at = {}, 0
+    for (name, (rule, _)), v in zip(fields.items(), vals):
+        g = got[:, at:at + v.size].reshape((len(got),) + v.shape)
+        at += v.size
+        if rule == "max":
+            out[name] = g.max(axis=0)
+        elif rule == "each":
+            out[name] = g
+        else:
+            rows = {int(r[0]): r[1:] for r in g.reshape(-1, v.shape[-1]) if r[0] >= 0}
+            out[name] = np.sum(list(rows.values()), axis=0)
+    return out
 
 
 def _agree_statics(statics, rows: int, mesh: Mesh | None):
     """The pool statics of every rank's block merged, the same on every
-    rank; None when any rank declined (``statics`` None). Each rank sends
-    [declined, widths, sizes, hist padded to ``rows`` plans]."""
+    rank; None when any rank declined (``statics`` None). Each rank's
+    histogram is padded to ``rows`` plans."""
     nb, ns = _fp.WIDTH_BINS, len(_fp.STATIC_SIZES)
-    vec = np.zeros(1 + nb + ns + rows * nb, np.int64)
-    if statics is None:
-        vec[0] = 1
-    else:
-        hist = statics.hist
-        vec[1:] = np.concatenate([statics.widths, statics.sizes, hist.ravel(),
-                                  np.zeros((rows - len(hist)) * nb, np.int64)])
-    got = _gather_rows(vec, mesh)
-    if got[:, 0].any():
+    mine = statics or _fp.PoolStatics(np.zeros(nb), np.zeros((0, nb)), np.zeros(ns))
+    got = _agree(mesh, declined=("max", statics is None), widths=("each", mine.widths),
+                 hist=("each", np.pad(mine.hist, ((0, rows - len(mine.hist)), (0, 0)))),
+                 sizes=("each", mine.sizes))
+    if got["declined"]:
         return None
-    return _fp.merge_pool_statics([
-        _fp.PoolStatics(v[1:1 + nb], v[1 + nb + ns:].reshape(rows, nb), v[1 + nb:1 + nb + ns])
-        for v in got
-    ])
+    return _fp.merge_pool_statics([_fp.PoolStatics(*part) for part in zip(
+        got["widths"], got["hist"], got["sizes"])])
 
 
-def _batched_pools_host(clouds, counts, idx_tgt, radius, k, dtype, idx_src=None,
+def _batched_pools_host(clouds, counts, idx_tgt, radius, k, dtype, idx_src,
                         device="cuda", host: Optional[_HostPhases] = None,
                         mesh: Mesh | None = None):
     """Per-pair POOLED prepacks harmonized to one static geometry
     (ops.fused_pool.plan_pool_host_group), built on ``device`` and stacked on
-    the batch axis; the grids, the plan and the rest in ``host``'s spans
-    ``batch_grid``, ``batch_plan`` and ``batch_build``. ``clouds[i]`` is
-    scan i padded; the count ``batch_targets`` records the distinct
-    targets planned.
+    the batch axis, with the search's final budgets; the grids, the plan
+    and the rest in ``host``'s spans ``batch_grid``, ``batch_plan`` and
+    ``batch_build``. ``clouds[i]`` is scan i padded (one row count for
+    every scan); the count ``batch_targets`` records the distinct targets
+    planned.
 
     ``idx_tgt`` / ``idx_src`` are the pairs this call prepares. On a
     ``mesh`` they are this rank's block of the batch (the same number of
     pairs on every rank): the rank plans and builds only its block's
     targets, and two ``all_gather`` of a few hundred int64 agree what every
     rank's program shares: the plan statics (ladder, per-class real counts,
-    padded sizes) before the forced plans, then the class budgets, the row
-    budget and the small-unions hint. Every rank thus runs the geometry the
-    whole batch's group plan gives.
+    padded sizes) before the forced plans, then the inputs of the budgets
+    (``ops.fused_pool.search_budgets``) and of the small-unions hint. Every
+    rank thus runs the geometry the whole batch's group plan gives.
 
-    ``idx_src`` (per-pair source scan ids) enables the demand-sized row
-    budget: the plan's target-occupancy proxy undercounts REAL pairs
-    ~1.5x at KITTI scale (models/registration.py ctor has the same fix),
-    and in the batched engine an undercount silently sends those pairs to
-    the grid-redo splice — correct but a whole second engine pass. The
-    returned ``budget_rows`` then covers max-over-pairs real demand.
+    The row budget covers the most grouping demand of any pair's real
+    source (the plans' target-occupancy proxy undercounts REAL pairs ~1.5x
+    at KITTI scale, and in the batched engine an undercount sends those
+    pairs to the grid-redo splice: correct but a whole second engine
+    pass); the class-prefix budgets are the plans' own.
 
     Returns None when any pair (on any rank) declines the pooled engine —
     callers fall back to the batched grid engine.
@@ -462,50 +471,28 @@ def _batched_pools_host(clouds, counts, idx_tgt, radius, k, dtype, idx_src=None,
     if force is None:  # the same on every rank
         return None
     with host("batch_build"):
-        np_dtype = np.dtype(dtype)
-        pres = {}
-        for i, plan in zip(uniq_ids, plans or ()):
-            pre = _fp.build_pool_prepack(grids[i], clouds[i], dtype=np_dtype, plan=plan, k=k,
-                                         device=device)
-            if pre is None:
-                break
-            pres[i] = pre
         n_classes = len(force["widths"])
-        # [declined, class budgets, budget rows, demand], then (target,
-        # sum of min(union, k), windows) a target for the small-unions hint,
-        # a mean over the whole batch's distinct targets.
-        head = 3 + n_classes
-        vec = np.zeros(head + 3 * len(idx_tgt), np.int64)
-        if len(pres) < len(uniq_ids):
-            vec[0] = 1
-        else:
-            vec[1:1 + n_classes] = [max(pres[i].class_budgets[c] for i in uniq_ids)
-                                    for c in range(n_classes)]
-            vec[1 + n_classes] = max(int(pres[i].budget_rows) for i in uniq_ids)
-            if idx_src is not None:
-                plan_of = dict(zip(uniq_ids, plans))
-                vec[2 + n_classes] = max(
-                    _fp.estimate_pool_demand_rows(
-                        plan_of[int(t)], clouds[int(s)], num_valid=int(counts[int(s)])
-                    )
-                    for s, t in zip(idx_src, idx_tgt)
-                )
-            vec[head:] = -1
-            for j, (i, plan) in enumerate(zip(uniq_ids, plans)):
-                u = plan["dil"]["union"]
-                u = u[u > smw]  # only windows of kernel classes count
-                vec[head + 3 * j:head + 3 * j + 3] = i, np.minimum(u, k).sum(), u.size
-        got = _gather_rows(vec, mesh)
-        if got[:, 0].any():
+        plan_of = dict(zip(uniq_ids, plans or ()))
+        pres = {i: _fp.build_pool_prepack(grids[i], clouds[i], dtype=np.dtype(dtype), plan=plan,
+                                          k=k, device=device) for i, plan in plan_of.items()}
+        # The budgets' inputs (zeros where this rank declined): the plans'
+        # own budgets, the replayed demand of the block's pairs, and each
+        # distinct target's small-unions part.
+        plan_rows, plan_classes = _fp.plan_budgets(plans) if plans else (0, (0,) * n_classes)
+        demand, _ = _fp.pool_demand(
+            (_fp.ReplayKeys.of(plan_of[int(t)]), clouds[int(s)][:int(counts[int(s)])])
+            for s, t in (zip(idx_src, idx_tgt) if plans else ()))
+        unions = np.full((len(idx_tgt), 3), -1, np.int64)
+        for row, (i, plan) in zip(unions, plan_of.items()):
+            row[0], row[1:] = i, _fp.small_unions_part(plan, k, smw)
+        got = _agree(mesh, declined=("max", plans is None), plan_rows=("max", plan_rows),
+                     plan_classes=("max", plan_classes), demand=("max", demand),
+                     unions=("distinct", unions))
+        if got["declined"]:
             return None
-        class_budgets = tuple(int(b) for b in got[:, 1:1 + n_classes].max(axis=0))
-        budget_rows = int(got[:, 1 + n_classes].max())
-        if idx_src is not None:
-            demand = int(got[:, 2 + n_classes].max())
-            budget_rows = max(budget_rows, bucket_rows(int(1.25 * demand), step_bits=3))
-        hint = {int(t): (int(a), int(b)) for t, a, b in got[:, head:].reshape(-1, 3) if t >= 0}
-        su_sum = sum(a for a, _ in hint.values())
-        su_count = sum(b for _, b in hint.values())
+        budget_rows, class_budgets = _fp.search_budgets(
+            _fp.demand_row_budget(got["plan_rows"], got["demand"]), clouds[uniq_ids[0]].shape[0],
+            class_budgets=tuple(int(b) for b in got["plan_classes"]))
 
         first = pres[uniq_ids[0]]
         rows = [pres[int(i)] for i in idx_tgt]
@@ -525,9 +512,7 @@ def _batched_pools_host(clouds, counts, idx_tgt, radius, k, dtype, idx_src=None,
             "class_ends": first.class_ends,
             "class_budgets": class_budgets,
             "budget_rows": budget_rows,
-            # ops/fused_grid.py::_small_unions over every distinct target's
-            # kernel-class windows: mean(min(union, k)) < 0.75 k.
-            "small_unions": bool(su_count and su_sum / su_count < 0.75 * k),
+            "small_unions": small_unions_of(got["unions"], k),
             "select_max_w": smw,
         }
 
@@ -669,9 +654,6 @@ def _run_batch(scans, *, k, radius, lm_config, n_outer, pad_multiple, mesh, dtyp
     stats["engine"] = "pool" if pools is not None else "grid" if grids is not None else "brute"
     if pools is not None:
         with host("batch_build"):
-            budget = round_up(max(pools["budget_rows"], sources.shape[1] + 4096),
-                              2 * BLOCK_GROUPS * GROUP)
-            budgets = pools["class_budgets"][:-1] + (budget // GROUP,)
             # Already this rank's block: nothing to shard.
             arrays = (sources, sv, pools["select_xyz"], pools["pool_idx"],
                       pools["class_width_luts"], pools["lut_d"], pools["origin_d"],
@@ -679,14 +661,15 @@ def _run_batch(scans, *, k, radius, lm_config, n_outer, pad_multiple, mesh, dtyp
         stats["host_seconds"] = host.seconds
         stats["class_widths"] = pools["class_widths"]
         stats["class_ends"] = pools["class_ends"]
-        stats["class_budgets"] = budgets
-        stats["budget_rows"] = budget
+        stats["class_budgets"] = pools["class_budgets"]
+        stats["budget_rows"] = pools["budget_rows"]
         stats["pool_shapes"] = tuple(tuple(x.shape[1:]) for x in arrays[2:] for x in (
             x if isinstance(x, tuple) else (x,)))
         with spans.span("batch_loop"):
             result = batched_pair_register_pool(
                 *arrays, class_widths=pools["class_widths"], class_ends=pools["class_ends"],
-                class_budgets=budgets, budget_rows=budget, small_unions=pools["small_unions"],
+                class_budgets=pools["class_budgets"], budget_rows=pools["budget_rows"],
+                small_unions=pools["small_unions"],
                 select_max_w=pools["select_max_w"], **rule,
             )
         del arrays, pools, sources, sv

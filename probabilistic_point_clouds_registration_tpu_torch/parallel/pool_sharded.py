@@ -33,11 +33,10 @@ import numpy as np
 import torch
 
 from ..core.se3 import quat_rotate_points
-from ..core.types import bucket_rows, round_up
 from ..models.em_lm import LMBlocks, LMConfig, LMResult, em_lm_solve
 from ..models.registration import Association, scan_convergence
 from ..ops import fused_pool as _fp
-from ..ops.fused_grid import BLOCK_GROUPS, GROUP
+from ..ops.fused_grid import small_unions_of
 from ..ops.grid import build_grid_host
 from .grid_sharded import merge_topk_scatter, replication_check, sharded_merge_topk
 from .mesh import POINTS_AXIS, TARGETS_AXIS, Mesh
@@ -136,8 +135,8 @@ def build_sharded_pool_host(
     (numpy). Returns None when any shard declines the pooled engine.
 
     ``source_slices`` (the per-points-shard source rows the step will run)
-    sizes the row budget from the measured grouping demand, max over every
-    (slice, shard) pair x1.25, instead of the 8x source-rows floor; the
+    sizes the budgets from the measured grouping demand
+    (:func:`demand_sized_plan`) instead of the 8x source-rows floor; the
     overflow flag and the budget ladder still guard drift. The plans are
     made for ``device``'s narrow-class cutoff.
     """
@@ -186,27 +185,8 @@ def build_sharded_pool_host(
         "float32",
         plans2[0]["bands"],  # one F=1 band per class, shared
     )
-    budgets = tuple(
-        int(max(p["budgets"][c] for p in plans2)) for c in range(len(ladder))
-    )
-    budget_rows = max(int(p["budget_rows"]) for p in plans2)
-    demand_sized = False
-    if source_slices:
-        demand = 0
-        cum_max = [0] * len(ladder)
-        for p2 in plans2:
-            ends_p = tuple(p2["row_ends"])
-            for sl in source_slices:
-                d, cu = _fp.estimate_pool_demand_rows(p2, sl, class_row_ends=ends_p)
-                demand = max(demand, d)
-                cum_max = [max(a, b) for a, b in zip(cum_max, cu)]
-        budget_rows = max(budget_rows, bucket_rows(int(1.25 * demand), step_bits=3))
-        # Class-prefix budgets from the same replay (not clamped to the
-        # plan's 2x estimates: the replay may exceed them).
-        budgets = _fp.demand_class_budgets(cum_max, budgets[-1])
-        demand_sized = True
-    all_unions = np.concatenate([p["dil"]["union"] for p in plans2])
-    return ShardedPoolPlan(
+    budget_rows, budgets = _fp.plan_budgets(plans2)
+    sp = ShardedPoolPlan(
         seeds=seeds,
         plan_key=plan_key,
         class_widths=tuple(ladder),
@@ -215,48 +195,39 @@ def build_sharded_pool_host(
         budget_rows=budget_rows,
         cell_size=float(cell_size),
         n_shards=n_shards,
-        small_unions=_fp._small_unions(all_unions[all_unions > smw], k),
+        small_unions=small_unions_of(sum(_fp.small_unions_part(p, k, smw) for p in plans2), k),
         select_max_w=smw,
-        demand_sized=demand_sized,
     )
+    return demand_sized_plan(sp, source_slices) if source_slices else sp
 
 
 def estimate_sharded_demand_rows(
     sp: ShardedPoolPlan, sources: list, with_classes: bool = False
 ):
-    """Measured grouping demand of real source slices against a prepared
-    sharded plan (max over every (slice, shard) pair): a plan made on a
-    prep thread before the pair's source existed is sized here by the
-    ctor. ``with_classes=True`` returns ``(rows, cum_groups)`` with the
-    per-class cumulative group counts (max over the pairs)."""
-    prod_d_pad = sp.plan_key[2]
-    best = 0
-    cum_max = [0] * len(sp.class_ends)
-    for s in range(sp.n_shards):
-        plan_like = {
-            "dil": {
-                "dims_d": sp.seeds["dims_d"][s],
-                "origin_d": sp.seeds["origin_d"][s],
-            },
-            "cell_size": sp.cell_size,
-            "prod_d_pad": prod_d_pad,
-            # Padded tails carry sentinel cell ids (prod_d_pad) and -1 qmeta,
-            # which the replay's scatter drops like the device build does.
-            "d_cells": sp.seeds["d_cells"][s],
-            "qmeta_vals": sp.seeds["qmeta_vals"][s],
-        }
-        for src in sources:
-            if with_classes:
-                d, cu = _fp.estimate_pool_demand_rows(
-                    plan_like, src, class_row_ends=sp.class_ends
-                )
-                cum_max = [max(a, b) for a, b in zip(cum_max, cu)]
-            else:
-                d = _fp.estimate_pool_demand_rows(plan_like, src)
-            best = max(best, d)
-    if with_classes:
-        return best, cum_max
-    return best
+    """Measured grouping demand of real source slices against a sharded
+    plan, from its own seeds (max over every (slice, shard) pair).
+    ``with_classes=True`` returns ``(rows, cum_groups)`` with the per-class
+    cumulative group counts (max over the pairs)."""
+    seeds = sp.seeds
+    keys = [_fp.ReplayKeys(seeds["d_cells"][s], seeds["qmeta_vals"][s], sp.plan_key[2],
+                           seeds["dims_d"][s], seeds["origin_d"][s], sp.cell_size)
+            for s in range(sp.n_shards)]
+    rows, cum = _fp.pool_demand([(key, src) for key in keys for src in sources],
+                                sp.class_ends if with_classes else ())
+    return (rows, cum) if with_classes else rows
+
+
+def demand_sized_plan(sp: ShardedPoolPlan, sources: list) -> ShardedPoolPlan:
+    """``sp`` with its row and class-prefix budgets sized from the grouping
+    demand of the source slices the step will run
+    (:func:`estimate_sharded_demand_rows`): a plan made on a prep thread
+    before the pair's source existed is sized here by the ctor. The class
+    budgets come from the replay, not clamped to the plans' 2x estimates
+    (the replay may exceed them)."""
+    rows, cum = estimate_sharded_demand_rows(sp, sources, with_classes=True)
+    return sp._replace(budget_rows=_fp.demand_row_budget(sp.budget_rows, rows),
+                       class_budgets=_fp.demand_class_budgets(cum, sp.class_budgets[-1]),
+                       demand_sized=True)
 
 
 class ShardedPools(NamedTuple):
@@ -386,23 +357,13 @@ def _use_scatter(mesh: Mesh, source_rows_per_shard: int) -> bool:
 
 
 def _pool_budgets(sp: ShardedPoolPlan, source_rows_per_shard: int, boost: int = 0):
-    """(row budget, class-prefix budgets) of the sharded pooled search:
-    the measured-demand budget when the plan carries it, else the provably
-    sufficient 8x floor (target sharding thins per-window source occupancy
-    toward 1, and a window holding s sources costs at most s + 7 rows);
-    ``boost`` doubles the effective budget per rung of the ladder."""
-    floor_rows = (
-        source_rows_per_shard + 4096 if sp.demand_sized else 8 * source_rows_per_shard
-    )
-    budget = round_up(max(sp.budget_rows, floor_rows) << boost, 2 * BLOCK_GROUPS * GROUP)
-    ng = budget // GROUP
-    # Mid-class prefix budgets were estimated for a shard's own target
-    # count: scale them with the row-budget inflation.
-    scale = max(1, -(-budget // max(sp.budget_rows, 1)))
-    budgets = tuple(
-        min(ng, round_up(b * scale, BLOCK_GROUPS)) for b in sp.class_budgets[:-1]
-    ) + (ng,)
-    return budget, budgets
+    """(row budget, class-prefix budgets) of the sharded pooled search at
+    rung ``boost`` (``ops.fused_pool.search_budgets``): without demand
+    sizing, the 8x source-rows floor; the mid-class budgets were estimated
+    for a shard's own target count, so they grow with the row budget."""
+    return _fp.search_budgets(sp.budget_rows, source_rows_per_shard,
+                              class_budgets=sp.class_budgets, boost=boost,
+                              demand_sized=sp.demand_sized, inflate=True)
 
 
 def _pool_associate(mesh: Mesh, sp: ShardedPoolPlan, pools: ShardedPools, sv, *, k, radius,

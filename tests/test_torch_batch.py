@@ -37,7 +37,6 @@ from probabilistic_point_clouds_registration_tpu_torch.models.em_lm import (
     lm_init,
     lm_step,
 )
-from probabilistic_point_clouds_registration_tpu_torch.ops import fused_grid as fg
 from probabilistic_point_clouds_registration_tpu_torch.ops import fused_pool as fp
 from probabilistic_point_clouds_registration_tpu_torch.ops import grid as tgrid
 from probabilistic_point_clouds_registration_tpu_torch.parallel import batch as TB
@@ -212,12 +211,9 @@ def _pool_batch(n_pairs=3, radius=0.5, k=10):
                                    idx_src=idx_src, device="cpu")
     src = torch.as_tensor(stack[idx_src].astype(np.float32))
     sv = torch.arange(stack.shape[1])[None, :] < torch.as_tensor(counts[idx_src])[:, None]
-    budget = fp.round_up(max(pools["budget_rows"], src.shape[1] + 4096),
-                         2 * fg.BLOCK_GROUPS * fg.GROUP)
     search = dict(radius=radius, class_widths=pools["class_widths"],
-                  class_ends=pools["class_ends"],
-                  class_budgets=pools["class_budgets"][:-1] + (budget // fg.GROUP,),
-                  budget_rows=budget, small_unions=pools["small_unions"],
+                  class_ends=pools["class_ends"], class_budgets=pools["class_budgets"],
+                  budget_rows=pools["budget_rows"], small_unions=pools["small_unions"],
                   select_max_w=pools["select_max_w"])
     tables = (pools["select_xyz"], pools["pool_idx"], pools["class_width_luts"],
               pools["lut_d"], pools["origin_d"], pools["dims_d"])
@@ -352,18 +348,6 @@ def test_batched_step_matches_per_pair_and_ignores_the_batch(dtype):
     assert int(state.iteration[1]) == 0 and bool(state.done.all())
 
 
-def _hot_sequence():
-    """The 5-scan sequence with scan 3 seen twice (2 cm apart) and a blob
-    of 40 points in it: the second rank's block (pairs 2-3, targets 2 and
-    3) plans a wider class ladder (64 lanes against 16) and a larger row
-    budget than the other blocks."""
-    scans = _sequence(5)[0]
-    rng = np.random.default_rng(3)
-    blob = rng.normal(scale=0.2, size=(40, 3)) + scans[3][700]
-    again = scans[3] + rng.normal(scale=0.02, size=scans[3].shape)
-    return scans[:3] + [np.concatenate([scans[3], blob, again]), scans[4]]
-
-
 @pytest.fixture(scope="module")
 def sharded(tmp_path_factory):
     """One group of 3 gloo processes: 5 scans (4 pairs, padded to 6); the
@@ -376,7 +360,7 @@ def sharded(tmp_path_factory):
         ("batch_odometry", dict(dp=3, scans=5, radius=1.0, dtype="float64",
                                 search_impl="brute", lm_config=cfg, tag="brute", **KW)),
         ("batch_odometry", dict(**pool, scans=5, tag="pool", **KW)),
-        ("batch_odometry", dict(**pool, scans=_hot_sequence(), tag="hot", **KW)),
+        ("batch_odometry", dict(**pool, scans=W.hot_sequence(), tag="hot", **KW)),
         ("batch_odometry", dict(**pool, scans=5, tag="redo", starved=True, **KW)),
     ]
     return W.run_group(3, cases, tmp_path_factory.mktemp("batch3"), timeout=300)
@@ -426,7 +410,7 @@ def test_sharded_ranks_plan_only_their_blocks_and_agree_the_geometry(sharded, mo
     whole batch's plan: on the hot sequence the first two ranks take the
     last block's wider classes. Every rank's answer is the unsharded
     one's."""
-    scans = _sequence(5)[0] if tag == "pool" else _hot_sequence()
+    scans = _sequence(5)[0] if tag == "pool" else W.hot_sequence()
     poses, res, stats = _unsharded_pool(monkeypatch, scans)
     if tag == "hot":
         assert stats["class_widths"][0] == 64

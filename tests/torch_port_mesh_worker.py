@@ -123,6 +123,18 @@ def wave_sequence(n_scans: int = 5):
     return scans
 
 
+def hot_sequence():
+    """The 5-scan :func:`wave_sequence` with scan 3 seen twice (2 cm apart)
+    and a blob of 40 points in it: on a 3-rank batch the second rank's
+    block (pairs 2-3, targets 2 and 3) plans a wider class ladder (64 lanes
+    against 16) and a larger row budget than the other blocks."""
+    scans = wave_sequence(5)
+    rng = np.random.default_rng(3)
+    blob = rng.normal(scale=0.2, size=(40, 3)) + scans[3][700]
+    again = scans[3] + rng.normal(scale=0.02, size=scans[3].shape)
+    return scans[:3] + [np.concatenate([scans[3], blob, again]), scans[4]]
+
+
 def starved_pools(real):
     """A batch's pool preparation (``parallel/batch.py::_batched_pools_host``
     of either package) with every non-last class's group budget at 16, so
@@ -540,6 +552,39 @@ def batch_odometry(device, dp: int, scans, starved: bool = False, **kw):
     return {"poses": np.array(poses), "seconds": time.perf_counter() - t0, "stats": stats,
             "result": {name: _np(x) for name, x in result._asdict().items()},
             "launches": {key: fn.launches for key, fn in counters.items()}, "counts": counts}
+
+
+@case
+def batch_pools(device, dp: int, scans: str, cutoff=None, radius: float = 0.5, k: int = 10,
+                pad_multiple: int = 128):
+    """``parallel/batch.py::_batched_pools_host`` on this rank's block of a
+    dp x 1 mesh (no mesh when ``dp`` is 1), as ``run_odometry_batched``
+    prepares it: the pooled search's (budget_rows, class_budgets,
+    small_unions). ``scans`` names the sequence ("wave":
+    :func:`wave_sequence`, "hot": :func:`hot_sequence`); ``cutoff``, when
+    given, is the narrow-class cutoff for the call in place of the
+    device's."""
+    from probabilistic_point_clouds_registration_tpu_torch.ops import fused_pool
+    from probabilistic_point_clouds_registration_tpu_torch.parallel import batch, make_mesh
+
+    clouds = batch._PaddedScans(wave_sequence(5) if scans == "wave" else hot_sequence(),
+                                pad_multiple)
+    n = len(clouds.scans) - 1
+    per = -(-n // dp)
+    idx_src, idx_tgt = np.minimum(np.arange(per * dp) + 1, n), np.minimum(np.arange(per * dp), n)
+    mesh = make_mesh(dp, 1, device=device) if dp > 1 else None
+    rank = 0 if mesh is None else mesh.index("points")
+    block = slice(rank * per, (rank + 1) * per)
+    own = fused_pool._select_max_w
+    if cutoff is not None:
+        fused_pool._select_max_w = lambda device: cutoff
+    try:
+        pools = batch._batched_pools_host(clouds, clouds.counts, idx_tgt[block], radius, k,
+                                          np.float32, idx_src=idx_src[block], device=device,
+                                          mesh=mesh)
+    finally:
+        fused_pool._select_max_w = own
+    return pools["budget_rows"], pools["class_budgets"], pools["small_unions"]
 
 
 @case
